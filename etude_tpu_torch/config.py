@@ -1,7 +1,8 @@
-"""Settings of the decode-only path, as plain dataclasses.
+"""Settings of the ported paths (Structuralize, Decode), as plain dataclasses.
 
 Copied from the JAX package's pydantic schema (etude_tpu/config/schema.py:
-the decoder paths :51-53 and the DecoderConfig generation fields :196-216),
+the model paths :46-53, BeatDetectorConfig :140 with its model config,
+SeparatorConfig :154 and the DecoderConfig generation fields :196-216),
 without pydantic: the port runs where neither pydantic nor PyYAML is
 installed. A settings file is read only when the caller names one: a `.json`
 file with the json module, anything else as YAML, which then needs PyYAML.
@@ -12,15 +13,62 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 
 @dataclasses.dataclass
 class PathConfig:
+    beat_detector_model: Path = Path("checkpoints/beat_detector/latest.ckpt")
+    separator_model: Path = Path("checkpoints/separator/latest.ckpt")
     decoder_model: Path = Path("checkpoints/decoder/latest.ckpt")
     decoder_config: Path = Path("checkpoints/decoder/etude_decoder_config.json")
     decoder_vocab: Path = Path("checkpoints/decoder/vocab.json")
     infer_output_dir: Path = Path("outputs/infer")
+
+
+@dataclasses.dataclass
+class BeatDetectorModelConfig:
+    attn_len: int = 5
+    instr: int = 5
+    ntoken: int = 2
+    dmodel: int = 256
+    nhead: int = 8
+    d_hid: int = 1024
+    nlayers: int = 9
+    norm_first: bool = True
+
+
+@dataclasses.dataclass
+class BeatDetectorConfig:
+    min_bpm: float = 70.0
+    max_bpm: float = 250.0
+    fps_divisor: int = 1024
+    threshold: float = 0.2
+    beats_per_bar: List[int] = dataclasses.field(default_factory=lambda: [3, 4])
+    # Tempo-octave disambiguation pass over the DBN output
+    # (ops/beat_octave.py); off by default, as in the JAX package.
+    octave_disambiguation: bool = False
+    model: BeatDetectorModelConfig = dataclasses.field(
+        default_factory=BeatDetectorModelConfig)
+
+
+@dataclasses.dataclass
+class SeparatorConfig:
+    """Separation settings of the schema; the Structuralize stage runs the
+    separator model's own defaults (models/separator.py), as in the JAX
+    package."""
+
+    sr: int = 44100
+    n_fft: int = 4096
+    hop: int = 1024
+    num_stems: int = 5
+    mel_bins: int = 128
+    mel_fmin: float = 30.0
+    mel_fmax: float = 11000.0
+    base_channels: int = 24
+    depth: int = 5
+    freq_bins: int = 1024
+    channel_cap: int = 192
 
 
 @dataclasses.dataclass
@@ -34,6 +82,9 @@ class DecoderConfig:
 @dataclasses.dataclass
 class EtudeConfig:
     paths: PathConfig = dataclasses.field(default_factory=PathConfig)
+    beat_detector: BeatDetectorConfig = dataclasses.field(
+        default_factory=BeatDetectorConfig)
+    separator: SeparatorConfig = dataclasses.field(default_factory=SeparatorConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
 
 
@@ -63,6 +114,8 @@ def _apply(section, values: Dict[str, Any], where: str):
             _apply(current, value, f"{where}{key}.")
         elif isinstance(current, Path):
             setattr(section, key, Path(value))
+        elif isinstance(current, list):
+            setattr(section, key, [type(current[0])(v) for v in value])
         else:
             setattr(section, key, type(current)(value))
 

@@ -1,13 +1,16 @@
-"""Decode-only piano-cover generation on one GPU:
+"""Piano-cover generation on one GPU, as far as it is ported:
 `python -m etude_tpu_torch.infer --decode-only [--device cpu] ...`
 
-The port of the decode-only path of the repository's `infer.py` (:144-275,
-CLI :359-440). It reads the same work-dir contract (`extract.json`,
-`tempo.json`, `volume.json` under `<infer_output_dir>/temp`), tokenizes the
-condition, runs the streaming engine and writes `<infer_output_dir>/<name>.mid`
-with the port's own tokenizer and MIDI writer. `--sweep` decodes all 27
-polyphony/rhythm/sustain combinations as 27 streams on one card. The full
-`--input` pipeline, `--engine rebuild` and `--attrs-prior` are not ported yet.
+The port of the repository's `infer.py`. Decode (:144-275, CLI :359-440)
+reads the work-dir contract (`extract.json`, `tempo.json`, `volume.json`
+under `<infer_output_dir>/temp`), tokenizes the condition, runs the streaming
+engine and writes `<infer_output_dir>/<name>.mid` with the port's own
+tokenizer and MIDI writer; `--sweep` decodes all 27 polyphony/rhythm/sustain
+combinations as 27 streams on one card. Structuralize (:121-142) is
+`InferencePipeline._run_stage2_structuralize(audio_path)`: audio →
+separation features → beat activations → DBN → `beat_pred.json` and
+`tempo.json` in the work dir. Extract, and with it the `--input` pipeline,
+is not ported yet; nor are `--engine rebuild` and `--attrs-prior`.
 
 It runs on CUDA unless `--device cpu` is given; with no GPU it raises rather
 than carry on on the CPU. With no `--config`, the settings are the defaults
@@ -20,35 +23,28 @@ import argparse
 import sys
 import time
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
 from .config import EtudeConfig, load_config
+from .data.beat_analyzer import BeatAnalyzer
+from .data.beat_detector import BeatDetector
+from .data.separation import SourceSeparator
 from .data.tokenizer import TinyREMITokenizer, split_sequence_into_bars
 from .data.vocab import Vocab
 from .models.generate_stream import StreamingGenerationEngine
+from .utils.device import resolve_device
 from .utils.logger import logger
 from .utils.model_loader import load_etude_decoder
+from .utils.profiling import StageTimer
 
 _INTERMEDIATES = ("extract.json", "tempo.json", "volume.json")
 
 
-def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """`cuda` unless the caller asks for the CPU; raises without a GPU."""
-    device = torch.device(name or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' (--device cpu) "
-            "to run on the CPU"
-        )
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
-    return device
-
-
 class InferencePipeline:
-    """Work dir (Extract + Structuralize outputs) → piano-cover MIDI."""
+    """Audio → Structuralize outputs; work dir (Extract + Structuralize
+    outputs) → piano-cover MIDI."""
 
     def __init__(self, config: EtudeConfig, device=None,
                  allow_random_weights: bool = False):
@@ -59,20 +55,51 @@ class InferencePipeline:
         self.work_dir = self.output_dir / "temp"
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.work_dir.mkdir(parents=True, exist_ok=True)
+        self.timer = StageTimer(self.device)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
         logger.info(f"Device: {self.device} ({name})")
         logger.info(f"Output directory: {self.output_dir.resolve()}")
 
-    def _require_weights(self) -> None:
-        """A missing decoder checkpoint is a hard error unless random
-        weights are explicitly allowed (smoke runs and tests)."""
-        model = Path(self.config.paths.decoder_model)
-        if not model.exists() and not self.allow_random_weights:
-            logger.error(f"decoder checkpoint not found: {model}")
+    def _require_weights(self, *stages: str) -> None:
+        """A missing checkpoint of a named stage is a hard error unless
+        random weights are explicitly allowed (smoke runs and tests)."""
+        paths = {
+            "structuralize": [("separator", self.config.paths.separator_model),
+                              ("beat detector", self.config.paths.beat_detector_model)],
+            "decode": [("decoder", self.config.paths.decoder_model)],
+        }
+        missing = [(name, p) for stage in stages for name, p in paths[stage]
+                   if not Path(p).exists()]
+        if missing and not self.allow_random_weights:
+            for name, p in missing:
+                logger.error(f"{name} checkpoint not found: {p}")
             logger.error("refusing to run with randomly initialized weights; "
                          "pass --allow-random-weights to override")
             sys.exit(1)
+
+    def _run_stage2_structuralize(self, audio_path: Path) -> None:
+        """Audio → `beat_pred.json` and `tempo.json` in the work dir; the
+        separation features stay on the device for the beat model."""
+        logger.stage("Structuralize: separation + beat grid")
+        paths = self.config.paths
+        logger.step("Source separation (in-process)")
+        separator = SourceSeparator(model_path=paths.separator_model, device=self.device,
+                                    allow_random_weights=self.allow_random_weights)
+        features = separator.separate_features(audio_path, return_device=True,
+                                               timer=self.timer)
+
+        logger.step("Beat/downbeat detection")
+        detector = BeatDetector(self.config.beat_detector,
+                                model_path=paths.beat_detector_model, device=self.device,
+                                allow_random_weights=self.allow_random_weights)
+        detector.detect(features, self.work_dir / "beat_pred.json", timer=self.timer)
+
+        logger.step("Tempo analysis")
+        with self.timer.span("tempo: analysis"):
+            analyzer = BeatAnalyzer()
+            tempo = analyzer.analyze(self.work_dir / "beat_pred.json")
+            analyzer.save_tempo_data(tempo, self.work_dir / "tempo.json")
 
     def _run_stage3_decode(self, target_attributes: dict, final_filename: str,
                            sweep: bool = False, seed: int = 0) -> None:
@@ -152,7 +179,7 @@ class InferencePipeline:
             sweep: bool = False, seed: int = 0) -> None:
         """Decode-only: the work dir's intermediates → MIDI."""
         logger.skip("stages 1 & 2 (decode-only mode)")
-        self._require_weights()
+        self._require_weights("decode")
         for name in _INTERMEDIATES:
             if not (self.work_dir / name).exists():
                 logger.error(f"missing intermediate '{name}' in {self.work_dir}")
@@ -172,7 +199,8 @@ def main(argv=None) -> int:
 
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--input", type=str,
-                        help="path or URL of the source audio (not yet ported)")
+                        help="path or URL of the source audio (needs Extract, "
+                             "not yet ported)")
     source.add_argument("--decode-only", action="store_true",
                         help="reuse intermediates in the work dir")
 
@@ -220,7 +248,7 @@ def main(argv=None) -> int:
     }
     if not args.decode_only:
         raise NotImplementedError(
-            "the full --input pipeline (Extract, Structuralize) is not yet "
+            "the full --input pipeline needs Extract, which is not yet "
             "ported to etude_tpu_torch; use --decode-only"
         )
     InferencePipeline(

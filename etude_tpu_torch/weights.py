@@ -1,13 +1,19 @@
-"""The weight bridge: the JAX package's decoder parameter tree, as numpy
-arrays, into the port's `EtudeDecoder`.
+"""The weight bridge: the JAX package's parameter trees, as numpy arrays,
+into the port's modules.
 
-The JAX tree (etude_tpu/models/decoder.py:83-141) stacks the layers along a
-leading [L] axis, stores matrices as [in, out] and keeps an untied
+Decoder: the JAX tree (etude_tpu/models/decoder.py:83-141) stacks the layers
+along a leading [L] axis, stores matrices as [in, out] and keeps an untied
 `lm_head` [hidden, vocab]. `decoder_from_jax` unstacks and transposes into
 PyTorch's [out, in] `nn.Linear` weights, so both packages compute the same
-function. `init_decoder_params_np` is the port's own numpy copy of
-`init_params` (same tree, same draws in the same order, pad rows zeroed), so
-full-width weights can be made from a seed without JAX.
+function.
+
+Beat-Transformer and separator (etude_tpu/models/beat_transformer.py:51,
+separator.py:56): matrices [in, out] → [out, in]; conv kernels HWIO →
+PyTorch's OIHW.
+
+Each `init_*_params_np` is the port's own numpy copy of the JAX package's
+`init_params` (same tree, same draws in the same order), so full-width
+weights can be made from a seed without JAX.
 """
 
 from __future__ import annotations
@@ -17,7 +23,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .models.beat_transformer import BeatTransformer, BeatTransformerConfig
 from .models.decoder import ATTRIBUTE_ORDER, EtudeDecoder, EtudeDecoderConfig
+from .models.separator import Separator, SeparatorConfig, _stage_channels
 
 ParamTree = Dict[str, Any]
 
@@ -95,4 +103,138 @@ def decoder_from_jax(params: ParamTree, config: EtudeDecoderConfig,
     model.final_ln.weight.copy_(_t(params["final_ln"]["scale"]))
     model.final_ln.bias.copy_(_t(params["final_ln"]["bias"]))
     model.lm_head.weight.copy_(_t(params["lm_head"]).T)
+    return model.to(device).eval().requires_grad_(False)
+
+
+def init_beat_params_np(config: BeatTransformerConfig, seed: int = 0,
+                        std: float = 0.02) -> ParamTree:
+    """The JAX package's Beat-Transformer `init_params(config, seed, std)`
+    in numpy, f32."""
+    rng = np.random.default_rng(seed)
+    D, Hid = config.dmodel, config.d_hid
+
+    def normal(*shape):
+        return rng.normal(0.0, std, size=shape).astype(np.float32)
+
+    def linear(i, o):
+        return {"w": normal(i, o), "b": np.zeros(o, np.float32)}
+
+    def ln():
+        return {"scale": np.ones(D, np.float32), "bias": np.zeros(D, np.float32)}
+
+    layers = []
+    for idx in range(config.nlayers):
+        layer = {
+            "q": linear(D, D), "k": linear(D, D), "v": linear(D, D),
+            "er": normal(config.nhead, D // config.nhead, config.attn_len),
+            "ff1": linear(D, Hid), "ff2": linear(Hid, D),
+            "ln1": ln(), "ln2": ln(),
+        }
+        if idx in config.instr_layers:
+            layer["instr"] = {
+                "q": linear(D, D), "k": linear(D, D), "v": linear(D, D),
+                "o": linear(D, D),
+                "ff1": linear(D, Hid), "ff2": linear(Hid, D),
+                "ln1": ln(), "ln2": ln(),
+            }
+        layers.append(layer)
+    return {
+        "conv1": {"w": normal(5, 3, 1, 32), "b": np.zeros(32, np.float32)},
+        "conv2": {"w": normal(1, 12, 32, 64), "b": np.zeros(64, np.float32)},
+        "conv3": {"w": normal(3, 6, 64, D), "b": np.zeros(D, np.float32)},
+        "layers": layers,
+        "out": linear(D, config.ntoken),
+        "out_tempo": linear(D, config.n_tempi),
+    }
+
+
+def init_separator_params_np(config: SeparatorConfig, seed: int = 0,
+                             std: float = 0.02) -> ParamTree:
+    """The JAX package's separator `init_params(config, seed, std)` in numpy,
+    f32."""
+    rng = np.random.default_rng(seed)
+    k = config.kernel
+
+    def conv(ci, co, norm=True):
+        p = {"w": rng.normal(0.0, std, size=(k, k, ci, co)).astype(np.float32),
+             "b": np.zeros(co, np.float32)}
+        if norm:
+            p["gn_scale"] = np.ones(co, np.float32)
+            p["gn_bias"] = np.zeros(co, np.float32)
+        return p
+
+    chans = _stage_channels(config)
+    enc, dec = [], []
+    ch = 1
+    for co in chans:
+        enc.append({"down": conv(ch, 2 * co), "ref": conv(co, 2 * co)})
+        ch = co
+    for i in reversed(range(config.depth)):
+        co = chans[i - 1] if i > 0 else config.base_channels
+        skip_ch = chans[i - 1] if i > 0 else 1
+        dec.append({"up": conv(ch, 2 * ch), "merge": conv(ch + skip_ch, 2 * co)})
+        ch = co
+    return {"enc": enc, "dec": dec,
+            "mask_head": conv(ch, config.num_stems, norm=False)}
+
+
+def _copy_linear(lin, p):
+    lin.weight.copy_(_t(p["w"]).T)
+    lin.bias.copy_(_t(p["b"]))
+
+
+def _copy_ln(ln, p):
+    ln.weight.copy_(_t(p["scale"]))
+    ln.bias.copy_(_t(p["bias"]))
+
+
+def _copy_conv(conv, p):
+    conv.weight.copy_(_t(p["w"]).permute(3, 2, 0, 1))     # HWIO → OIHW
+    conv.bias.copy_(_t(p["b"]))
+
+
+@torch.no_grad()
+def beat_transformer_from_jax(params: ParamTree, config: BeatTransformerConfig,
+                              device="cpu") -> BeatTransformer:
+    """Build the port's Beat-Transformer (f32 masters, eval mode) from the
+    JAX tree."""
+    model = BeatTransformer(config)
+    for name in ("conv1", "conv2", "conv3"):
+        _copy_conv(getattr(model, name), params[name])
+    for layer, p in zip(model.layers, params["layers"], strict=True):
+        for name in ("q", "k", "v", "ff1", "ff2"):
+            _copy_linear(getattr(layer, name), p[name])
+        _copy_ln(layer.ln1, p["ln1"])
+        _copy_ln(layer.ln2, p["ln2"])
+        layer.er.copy_(_t(p["er"]))
+        if layer.instr is not None:
+            for name in ("q", "k", "v", "o", "ff1", "ff2"):
+                _copy_linear(getattr(layer.instr, name), p["instr"][name])
+            _copy_ln(layer.instr.ln1, p["instr"]["ln1"])
+            _copy_ln(layer.instr.ln2, p["instr"]["ln2"])
+    _copy_linear(model.out, params["out"])
+    _copy_linear(model.out_tempo, params["out_tempo"])
+    return model.to(device).eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def separator_from_jax(params: ParamTree, config: SeparatorConfig,
+                       device="cpu") -> Separator:
+    """Build the port's separator U-Net (f32 masters, eval mode) from the
+    JAX tree."""
+    model = Separator(config)
+
+    def copy(module, p):
+        _copy_conv(module.conv, p)
+        if module.norm:
+            module.gn_scale.copy_(_t(p["gn_scale"]))
+            module.gn_bias.copy_(_t(p["gn_bias"]))
+
+    for stage, p in zip(model.enc, params["enc"], strict=True):
+        copy(stage["down"], p["down"])
+        copy(stage["ref"], p["ref"])
+    for stage, p in zip(model.dec, params["dec"], strict=True):
+        copy(stage["up"], p["up"])
+        copy(stage["merge"], p["merge"])
+    copy(model.mask_head, params["mask_head"])
     return model.to(device).eval().requires_grad_(False)
