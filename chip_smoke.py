@@ -10,8 +10,10 @@ Phases, each announced with a flushed line when it starts and ends:
   2. build          nvcc builds every CUDA source of the port and g++ the DBN
                     decoder, all at once; a second build must be a cache hit
   3. kernels        each hand kernel against its plain PyTorch version on the
-                    card at the main path's shapes, with timings beside its
-                    bound and a library call where one exists
+                    card at the main path's shapes, with timings (L2 flushed,
+                    device time) beside its bound and a library call where
+                    one exists, and at its designs' edge cases; two
+                    launches on the same inputs must give the same bits
   4. serving        the streaming engine at full decoder width (random weights
                     from a seed through the weight bridge) over 24 real corpus
                     bars, 16 lockstep streams, greedy then sampled; the K1
@@ -51,8 +53,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12        # H100 SXM data sheet, CUDA cores
 LOGIT_ATOL, LOGIT_RTOL = 2e-2, 2e-2   # card vs CPU logits, both bf16 paths
 # Card (bf16) vs CPU (f32) beat activations: sigmoid outputs near 0.5 with
 # a spread of about 6e-3 under the random weights. The port's bf16 path
@@ -83,94 +83,47 @@ def phase(name: str):
         f"(t={time.perf_counter() - T0:.1f}s)")
 
 
-def time_ms(fn, iters: int = 50, flush=None) -> float:
-    """Median device time of one call (CUDA events around each call, after
-    warm-up); `flush` is overwritten before each call so K/V come from HBM,
-    as they do on the main path, and not from L2."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        if flush is not None:
-            flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
-def attention_inputs(B, C, seed, H=8, D=64):
-    """q f32, k/v bf16, bias f32 on the card, from a numpy seed. Visibility
-    is random (70%); the last stream's row is fully hidden (when B > 1) and
-    the first stream's second half is hidden."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    q = torch.tensor(rng.normal(size=(B, H, D)), dtype=torch.float32)
-    k = torch.tensor(rng.normal(size=(B, H, C, D)), dtype=torch.float32).bfloat16()
-    v = torch.tensor(rng.normal(size=(B, H, C, D)), dtype=torch.float32).bfloat16()
-    visible = rng.random((B, C)) < 0.7
-    visible[0, C // 2:] = False
-    if B > 1:
-        visible[-1] = False
-    bias = torch.tensor(np.where(visible, 0.0, -1e9), dtype=torch.float32)
-    return [t.cuda() for t in (q, k, v, bias)]
-
-
-def kernel_tolerance(ref) -> float:
-    """max|kernel - plain| allowed: two bf16 ulps (2^(e-7) for 2^e <= |x|)
-    of the largest |output|. o is a softmax-weighted mean of N(0, 1) rows,
-    so at these shapes |o| stays under about 0.4 (median about 0.04) and the
-    limit is 2e-3 to 4e-3. The kernel sums in another order than the plain
-    version, which can flip a bf16 rounding of p or o; a masking or tail
-    error moves o by far more."""
-    import math
-
-    top = ref.float().abs().max().item()
-    return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
-
-
-def check_kernel(B, C, seed, flush):
+def check_kernel(B, C, seed, flush, timed=True):
+    """K1 against its plain version on the card (inputs made on the card
+    from a seed, H = 8, D = 64), within two bf16 ulps of the largest |o|; two
+    launches on the same inputs must give the same bits. `timed` adds the
+    kernel's, the plain version's and masked SDPA's times."""
     import torch
     import torch.nn.functional as F
     from etude_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain,
     )
+    from etude_tpu_torch.utils.kernel_bench import (
+        attention_inputs, decode_bound, kernel_tolerance, time_ms,
+    )
 
     q, k, v, bias = attention_inputs(B, C, seed)
     H, D = k.shape[1], k.shape[3]
     out = decode_attention(q, k, v, bias)
+    again = decode_attention(q, k, v, bias)
     torch.cuda.synchronize()
     ref = decode_attention_plain(q, k, v, bias)
     if not torch.isfinite(out.float()).all():
         raise RuntimeError(f"decode_attention B={B} C={C}: non-finite output")
+    if not torch.equal(out, again):
+        raise RuntimeError(f"decode_attention B={B} C={C}: two launches differ")
     err = (out.float() - ref.float()).abs().max().item()
     tol = kernel_tolerance(ref)
     if err > tol:
         raise RuntimeError(f"decode_attention B={B} C={C}: max|kernel-plain| "
                            f"{err:.3g} > {tol:.3g}")
+    row = {"B": B, "C": C, "max_abs_err": err, "tol": tol}
+    if not timed:
+        say(f"  decode_attention B={B:2d} C={C:4d}: max_abs_err={err:.3g} (tol {tol:.3g}), "
+            f"deterministic")
+        return row
     q4 = q.to(torch.bfloat16)[:, :, None]
     mask = bias.to(torch.bfloat16)[:, None, None, :]
-    n_bytes = 2 * B * H * C * D * 2 + B * H * D * 4 + B * C * 4 + B * H * D * 2
-    n_ops = 4 * B * H * C * D + 5 * B * H * C
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
-    row = {
-        "B": B, "C": C, "max_abs_err": err, "tol": tol,
-        "ms": time_ms(lambda: decode_attention(q, k, v, bias), flush=flush),
-        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, bias), flush=flush),
-        "library_ms": time_ms(
-            lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask),
-            flush=flush),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": n_bytes,
-    }
+    row["bound_ms"], row["bound_by"], n_bytes = decode_bound(B, H, C, D)
+    row["ms"] = time_ms(lambda: decode_attention(q, k, v, bias), flush=flush)
+    row["plain_ms"] = time_ms(lambda: decode_attention_plain(q, k, v, bias), flush=flush)
+    row["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask), flush=flush)
     say(f"  decode_attention B={B:2d} C={C:4d}: max_abs_err={err:.3g} (tol {tol:.3g}) "
         f"kernel={row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
         f"sdpa={row['library_ms']:.4f} ms bound={row['bound_ms']:.4f} ms "
@@ -180,43 +133,41 @@ def check_kernel(B, C, seed, flush):
 
 def check_dilated(B, T, dilation, seed, flush, head7_bug=False):
     """K2 against its plain version on the card at the Beat-Transformer's
-    widths (H = 8, d = 32), bf16 q/k/v from a numpy seed."""
-    import numpy as np
+    widths (H = 8, d = 32), bf16 q/k/v made on the card from a seed, within
+    two bf16 ulps of the largest |o|; two launches must give the same bits."""
     import torch
     from etude_tpu_torch.ops.dilated_attention import (
-        ATTN_LEN, dilated_attention, dilated_attention_plain,
+        dilated_attention, dilated_attention_plain,
+    )
+    from etude_tpu_torch.utils.kernel_bench import (
+        dilated_bound, dilated_inputs, kernel_tolerance, time_ms,
     )
 
-    H, d = 8, 32
-    rng = np.random.default_rng(seed)
-    q, k, v = (torch.tensor(rng.normal(size=(B, H, T, d)), dtype=torch.float32)
-               .bfloat16().cuda() for _ in range(3))
-    er = torch.tensor(0.5 * rng.normal(size=(H, d, ATTN_LEN)), dtype=torch.float32
-                      ).bfloat16().cuda()
+    q, k, v, er = dilated_inputs(B, T, seed)
+    H, d = q.shape[1], q.shape[3]
     out = dilated_attention(q, k, v, er, dilation, head7_bug=head7_bug)
+    again = dilated_attention(q, k, v, er, dilation, head7_bug=head7_bug)
     torch.cuda.synchronize()
     ref = dilated_attention_plain(q, k, v, er, dilation, head7_bug=head7_bug)
     name = f"dilated_attention B={B} T={T} dilation={dilation} head7_bug={head7_bug}"
     if not torch.isfinite(out.float()).all():
         raise RuntimeError(f"{name}: non-finite output")
+    if not torch.equal(out, again):
+        raise RuntimeError(f"{name}: two launches differ")
     err = (out.float() - ref.float()).abs().max().item()
     tol = kernel_tolerance(ref)
     if err > tol:
         raise RuntimeError(f"{name}: max|kernel-plain| {err:.3g} > {tol:.3g}")
-    # q, k, v read once, o written once (bf16), er once (f32); per (query,
-    # slot): q.k and q.er (4d), p.v (2d) and the softmax (about 8).
-    n_bytes = 4 * B * H * T * d * 2 + H * d * ATTN_LEN * 4
-    n_ops = B * H * T * ATTN_LEN * (6 * d + 8)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+    bound_ms, bound_by, n_bytes = dilated_bound(B, H, T, d)
     row = {
-        "T": T, "dilation": dilation, "max_abs_err": err, "tol": tol,
+        "T": T, "dilation": dilation, "head7_bug": head7_bug,
+        "max_abs_err": err, "tol": tol,
         "ms": time_ms(lambda: dilated_attention(q, k, v, er, dilation,
                                                 head7_bug=head7_bug), flush=flush),
         "plain_ms": time_ms(lambda: dilated_attention_plain(
             q, k, v, er, dilation, head7_bug=head7_bug), iters=10, flush=flush),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
     }
     say(f"  dilated_attention B={B} T={T:5d} dil={dilation:3d}"
         f"{' head7_bug' if head7_bug else ''}: max_abs_err={err:.3g} (tol {tol:.3g}) "
@@ -659,18 +610,29 @@ def main() -> int:
     main_C = engine.pack([bars] * 16, attrs)["cache_len"]
 
     with phase("kernels"):
-        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+        from etude_tpu_torch.ops.decode_attention import max_cache_len
+        from etude_tpu_torch.utils.kernel_bench import L2Flush
+
+        flush = L2Flush()
         shapes = [(B, C) for B in (1, 16, 27) for C in (769, 1353)] + [(16, main_C)]
         rows = [check_kernel(B, C, seed, flush) for seed, (B, C) in enumerate(shapes)]
+        # The cluster's edges (4 chunks of ceil(C / 4) slots): C = 1 leaves
+        # three blocks with no slot, C = 7 one short chunk, C = 9 one empty;
+        # the serving C at B = 1 and 27; the largest C the wrapper accepts.
+        edges = [(1, 1), (1, 7), (16, 9), (1, main_C), (27, main_C), (1, max_cache_len())]
+        rows += [check_kernel(B, C, 50 + i, flush, timed=False)
+                 for i, (B, C) in enumerate(edges)]
         # K2 at B = 5 stems: a 2048-frame bucket, a 240 s song's 10,336
-        # frames (not a tile multiple) and its 12,288-frame bucket, whose 9
-        # dilations are one Beat-Transformer forward; one head7_bug case.
-        k2_cases = ([(2048, d) for d in (1, 256)] + [(10336, d) for d in (1, 256)]
-                    + [(12288, 2 ** i) for i in range(9)])
+        # frames (classes of two lengths at every dilation) and its
+        # 12,288-frame bucket, whose 9 dilations are one Beat-Transformer
+        # forward; T below the dilation; head7_bug at both ends.
+        k2_cases = ([(2048, d) for d in (1, 256)] + [(10336, 2 ** i) for i in range(9)]
+                    + [(12288, 2 ** i) for i in range(9)] + [(77, 128), (200, 256)])
         k2_rows = [check_dilated(5, T, dil, 100 + i, flush)
                    for i, (T, dil) in enumerate(k2_cases)]
-        k2_rows.append(check_dilated(5, 12288, 8, 200, flush, head7_bug=True))
-        k2_main = [r for r in k2_rows[:-1] if r["T"] == 12288]
+        k2_rows += [check_dilated(5, 12288, dil, 200 + dil, flush, head7_bug=True)
+                    for dil in (1, 8, 256)]
+        k2_main = [r for r in k2_rows if r["T"] == 12288 and not r["head7_bug"]]
         say(f"  dilated_attention, one forward at T=12288 (9 launches): kernel "
             f"{sum(r['ms'] for r in k2_main):.4f} ms, plain "
             f"{sum(r['plain_ms'] for r in k2_main):.4f} ms, bound "
@@ -711,7 +673,7 @@ def main() -> int:
             notes = read_midi_notes(out)
             say(f"  {out.name}: {out.stat().st_size} bytes, {len(notes)} notes")
 
-    main_row = rows[-1]
+    main_row = rows[len(shapes) - 1]
     say(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",

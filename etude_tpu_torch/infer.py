@@ -147,7 +147,7 @@ class InferencePipeline:
             for combo, bars in zip(combos, streams):
                 name = (f"{final_filename}_p{combo['polyphony_bin']}"
                         f"r{combo['rhythm_intensity_bin']}s{combo['sustain_bin']}")
-                self._write_midi(vocab, tokenizer, bars, name)
+                self._write_midi(vocab, tokenizer, bars, name, keep_empty=True)
             logger.success(f"sweep MIDI files saved to {self.output_dir}")
             return
 
@@ -163,9 +163,13 @@ class InferencePipeline:
         if out is not None:
             logger.success(f"final MIDI saved to {out.resolve()}")
 
-    def _write_midi(self, vocab, tokenizer, bars, name) -> Optional[Path]:
+    def _write_midi(self, vocab, tokenizer, bars, name,
+                    keep_empty: bool = False) -> Optional[Path]:
+        """Writes `name`.mid; an empty sequence is skipped with a warning
+        unless `keep_empty` (a sweep writes one file per combo, as the JAX
+        package does)."""
         events = [e for bar in bars for e in vocab.decode_sequence_to_events(bar)]
-        if not events:
+        if not events and not keep_empty:
             logger.warn(f"{name}: model generated an empty sequence")
             return None
         notes = tokenizer.decode_to_notes(

@@ -13,9 +13,14 @@ is [B, C] f32. The JAX cache keeps the slot axis last ([.., D, C]) for the
 TPU's lanes; the tests transpose when they feed the JAX kernel.
 
 Bound: the kernel must read K and V once, 2 * B*H*C*D * 2 bytes (plus q, the
-bias and the output); at B = 16, C = 769 that is about 25.2 MB per
-layer-step, 7.5 us at 3.35 TB/s. The source says what the simple design
-leaves on the table.
+bias and the output); at B = 16, C = 1217 that is 39.9 MB per layer-step,
+11.9 us at 3.35 TB/s. Design: one launch of a thread-block cluster of
+`CLUSTER` blocks per (b, h), each streaming a contiguous chunk of
+ceil(C / CLUSTER) K and then V rows through shared memory with cp.async,
+and the softmax's max and sum exchanged over distributed shared memory, so
+p is normalised by the global sum before its bf16 rounding, as on the TPU.
+A block keeps its chunk's scores in shared memory: `max_cache_len()` slots
+at most. The source says what the design still leaves behind.
 """
 
 from __future__ import annotations
@@ -29,7 +34,28 @@ import torch
 from . import _build
 
 HEAD_DIM = 64          # the kernel's D; the decoder's published head width
+CLUSTER = 4            # blocks per (b, h), each owning a chunk of the C slots
+_THREADS = 256         # threads per block
+_STAGES = 4            # 16-byte pieces each thread keeps in flight
 _MAX_SMEM = 232_448    # bytes of shared memory one block may use on Hopper
+
+
+def _fixed_smem_bytes() -> int:
+    warps = _THREADS // 32
+    return _STAGES * _THREADS * 16 + 4 * (warps * HEAD_DIM + 2 * CLUSTER + warps + HEAD_DIM)
+
+
+def smem_bytes(C: int) -> int:
+    """Dynamic shared memory of one block at C slots, as the kernel lays it
+    out (decode_attention.cu `smem_bytes`): the threads' rings of loads and
+    the chunk's scores (f32), then per-warp partial outputs, every rank's
+    (max, sum), the reduction scratch and the received partials."""
+    return _fixed_smem_bytes() + 4 * -(-C // CLUSTER)
+
+
+def max_cache_len() -> int:
+    """The largest C whose chunk of scores fits one block's shared memory."""
+    return (_MAX_SMEM - _fixed_smem_bytes()) // 4 * CLUSTER
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,17 +100,19 @@ def _check_cuda_inputs(q, k, v, bias):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if 4 * (C + 8 + 8 * D) > _MAX_SMEM:
-        raise ValueError(f"C = {C} slots exceed one block's shared memory")
+    if smem_bytes(C) > _MAX_SMEM:
+        raise ValueError(f"C = {C} slots exceed the cluster's shared memory "
+                         f"(at most {max_cache_len()})")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """o [B, H, D] bf16 = softmax(bf16(q)·Kᵀ/√D + bias)·V per (b, h).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    (q f32, k/v bf16, bias f32, all contiguous, D = 64) or raise; there is
-    no fallback. Each launch adds one to `decode_attention.launches`.
+    CPU tensors take the plain version. CUDA tensors launch the kernel, one
+    cluster launch of B*H*CLUSTER blocks (q f32, k/v bf16, bias f32, all
+    contiguous, D = 64, C <= max_cache_len()), or raise; there is no
+    fallback. Each launch adds one to `decode_attention.launches`.
     """
     tensors = (q, k, v, bias)
     if all(t.device.type == "cpu" for t in tensors):

@@ -15,7 +15,14 @@ the JAX functions; `er` is [H, d, attn_len].
 
 Bound: the kernel must read q, k and v once and write o once,
 4 * B*H*T*d * 2 bytes in bf16: 125.8 MB at B = 5 stems, H = 8, T = 12288,
-d = 32, about 37.6 us at 3.35 TB/s.
+d = 32, about 37.6 us at 3.35 TB/s. Design: a tile is 128 queries of one
+head taken in the strided view (by residue mod the dilation, then by
+position); a block stages a tile's q rows and the k and v rows its 5 slots
+fall on (a class segment's queries + 4 rows each) in shared memory with
+cp.async, two lanes per query read every slot from there, and persistent
+blocks stage the next tile while they compute this one. Each k and v row
+crosses from L2 about once instead of up to 5 times. The source says what
+the design still leaves behind.
 """
 
 from __future__ import annotations
@@ -140,8 +147,8 @@ def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "or all on one CUDA device")
     _check_cuda_inputs(q, k, v, er)
     B, H, T, d = q.shape
-    if dilation <= 0 or B * H > 65535:
-        raise ValueError(f"dilation {dilation} or B*H = {B * H} out of the kernel's range")
+    if dilation <= 0:
+        raise ValueError(f"dilation must be positive, got {dilation}")
     er_t = er.float().transpose(1, 2).contiguous()        # [H, A, d] f32
     first = (ctypes.c_int * H)(*head_offsets(H, ATTN_LEN)[:, 0].tolist())
     out = torch.empty_like(q)

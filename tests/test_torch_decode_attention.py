@@ -127,20 +127,81 @@ def test_scale_is_inverse_sqrt_head_dim():
                                atol=_cpu_atol(expect.numpy()), rtol=0)
 
 
+def test_cluster_shared_memory_caps_the_cache_length():
+    """The wrapper's limit on C is the cluster's: each of CLUSTER blocks
+    keeps its chunk's scores in one block's shared memory."""
+    from etude_tpu_torch.ops.decode_attention import (
+        _MAX_SMEM, _check_cuda_inputs, max_cache_len, smem_bytes,
+    )
+
+    top = max_cache_len()
+    assert smem_bytes(top) <= _MAX_SMEM < smem_bytes(top + 1)
+    assert top > 1217   # the serving shape's C fits
+
+    def meta(C):   # shapes and types only, no storage
+        return (torch.empty(1, H, D, device="meta"),
+                *(torch.empty(1, H, C, D, dtype=torch.bfloat16, device="meta")
+                  for _ in range(2)),
+                torch.empty(1, C, device="meta"))
+
+    _check_cuda_inputs(*meta(top))
+    with pytest.raises(ValueError, match="shared memory"):
+        _check_cuda_inputs(*meta(top + 1))
+
+
+# The cluster splits C into CLUSTER = 4 chunks of ceil(C / 4) slots: C = 1
+# leaves three blocks with no slot, C = 5 one short chunk and one empty,
+# C = 7 one short chunk, C = 9 one empty (C below 4 x the chunk), C = 1217
+# (the serving shape) ends on a short chunk. The last stream of every B > 1
+# case is fully hidden.
+CARD_CASES = [(1, 769), (16, 769), (27, 1353), (1, 1), (1, 7), (16, 5), (16, 7),
+              (16, 9), (16, 1217), (1, 1217), (27, 1217)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C", [(1, 769), (16, 769), (27, 1353)])
+@pytest.mark.parametrize("B,C", CARD_CASES)
 def test_kernel_matches_plain_on_card(B, C):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     q, k, v, bias = (t.cuda() for t in _inputs(B, C, seed=B + C))
     before = decode_attention.launches
     out = decode_attention(q, k, v, bias)
+    again = decode_attention(q, k, v, bias)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1
+    assert decode_attention.launches == before + 2
+    assert torch.equal(out, again)   # fixed summation order: the same bits
     ref = decode_attention_plain(q, k, v, bias)
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=_card_atol(ref.float().cpu()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_largest_cache_len_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import ctypes
+
+    from etude_tpu_torch.ops import _build
+    from etude_tpu_torch.ops.decode_attention import max_cache_len, smem_bytes
+
+    lib = _build.load("decode_attention")
+    lib.decode_attention_smem_bytes.restype = ctypes.c_size_t
+    for C in (1, 7, 1217, max_cache_len()):
+        assert lib.decode_attention_smem_bytes(C) == smem_bytes(C)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    C = max_cache_len()
+    q = torch.randn(1, H, D, device="cuda", generator=g)
+    k, v = (torch.randn(1, H, C, D, device="cuda", generator=g).bfloat16() for _ in range(2))
+    bias = torch.where(torch.rand(1, C, device="cuda", generator=g) < 0.7, 0.0, -1e9).float()
+    out = decode_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q, k, v, bias)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=_card_atol(ref.float().cpu()), rtol=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_attention(q, *(torch.cat([t, t[:, :, :1]], dim=2) for t in (k, v)),
+                         torch.cat([bias, bias[:, :1]], dim=1))
 
 
 def _fake_nvcc(tmp_path, body):

@@ -124,11 +124,20 @@ def test_tensors_off_cpu_and_off_cuda_raise():
         dilated_attention(q, k, v, er, 1)
 
 
+# A block tiles 64 queries in the strided view (by residue mod the
+# dilation): T = 10,336 (a 240 s song, not a multiple of any dilation > 32)
+# gives classes of two lengths at every dilation; T < dilation gives
+# classes of one query; head7_bug at both ends of the dilations.
+CARD_CASES = (
+    [(77, 1, False), (2048, 256, False), (10336, 1, False), (12288, 16, False),
+     (12288, 8, True)]
+    + [(10336, 2 ** i, False) for i in range(1, 9)]
+    + [(77, 128, False), (200, 256, False), (12288, 1, True), (12288, 256, True)]
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,dilation,head7_bug", [
-    (77, 1, False), (2048, 256, False), (10336, 1, False), (12288, 16, False),
-    (12288, 8, True),
-])
+@pytest.mark.parametrize("T,dilation,head7_bug", CARD_CASES)
 def test_kernel_matches_plain_on_card(T, dilation, head7_bug):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -136,8 +145,10 @@ def test_kernel_matches_plain_on_card(T, dilation, head7_bug):
                    for a in _inputs(5, 8, T, 32, seed=T + dilation))
     before = dilated_attention.launches
     out = dilated_attention(q, k, v, er, dilation, head7_bug=head7_bug)
+    again = dilated_attention(q, k, v, er, dilation, head7_bug=head7_bug)
     torch.cuda.synchronize()
-    assert dilated_attention.launches == before + 1
+    assert dilated_attention.launches == before + 2
+    assert torch.equal(out, again)
     ref = dilated_attention_plain(q, k, v, er, dilation, head7_bug=head7_bug).float()
     top = ref.abs().max().item()
     assert torch.isfinite(out.float()).all()

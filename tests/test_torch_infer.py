@@ -9,6 +9,7 @@ import torch
 from etude_tpu_torch import infer
 from etude_tpu_torch.config import load_config
 from etude_tpu_torch.utils.midi import read_midi_notes
+from infer import main as jax_infer_main
 from test_infer_pipeline import decode_only_env  # noqa: F401  (fixture)
 
 ARGS = ["--decode-only", "--device", "cpu", "--allow-random-weights"]
@@ -46,6 +47,25 @@ def test_sweep_writes_27_files(decode_only_env):  # noqa: F811
                      "--output_name", "sw", "--temperature", "0.9", "--seed", "1"])
     assert rc == 0
     assert len(list((tmp_path / "outputs" / "infer").glob("sw_p*r*s*.mid"))) == 27
+
+
+def test_sweep_of_empty_streams_writes_the_jax_packages_files(decode_only_env):  # noqa: F811
+    """With max_output_tokens 0 every stream is empty; the JAX package's
+    sweep still writes one .mid per combo, and so must the port's."""
+    tmp_path, cfg_yaml = decode_only_env
+    cfg_yaml.write_text(cfg_yaml.read_text().replace(
+        "decoder:\n", "decoder:\n  max_output_tokens: 0\n"))
+    out_dir = tmp_path / "outputs" / "infer"
+    sweep = ["--config", str(cfg_yaml), "--decode-only", "--allow-random-weights",
+             "--sweep", "--seed", "1"]
+    assert jax_infer_main([*sweep, "--output_name", "jax"]) == 0
+    assert infer.main([*sweep, "--device", "cpu", "--output_name", "port"]) == 0
+    jax_names = sorted(p.name[len("jax"):] for p in out_dir.glob("jax_*.mid"))
+    port_names = sorted(p.name[len("port"):] for p in out_dir.glob("port_*.mid"))
+    assert len(jax_names) == 27
+    assert port_names == jax_names
+    for path in out_dir.glob("port_*.mid"):
+        assert read_midi_notes(path) == []
 
 
 def test_no_gpu_without_cpu_request_raises(decode_only_env, monkeypatch):  # noqa: F811
