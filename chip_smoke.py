@@ -29,14 +29,33 @@ Phases, each announced with a flushed line when it starts and ends:
                     separation features and bf16 beat activations against
                     the port's CPU f32 path, each beside a control it must
                     catch
-  6. cli            `etude_tpu_torch.infer --decode-only` in-process on a work
-                    dir that holds the tempo.json of phase 5, to a MIDI file
-                    that parses
+  6. extract        `AMTAPC_Extractor.extract` at the committed extractor's
+                    full width (random weights from a seed) on the same 240 s
+                    click track, cold, warm and profiled: spans (resample
+                    apart), segments and groups, notes before and after the
+                    minimum-duration filter, peak device memory, the top
+                    device operations and the device's idle share; a
+                    well-formed extract.json; the front end's matmul against
+                    `F.conv2d` of the same filter, timed; then, on a short
+                    input, the card's bf16 head activations against the
+                    port's CPU f32 path, beside controls it must catch (one
+                    attention layer's output zeroed at a time)
+  7. pipeline       `etude_tpu_torch.infer --input` in-process on the 240 s
+                    song at full width (bars capped at 32 tokens): the five
+                    outputs exist and are well formed, the MIDI parses, the
+                    timing summary (audio decode, the concurrent stage 1+2
+                    span with its stage spans, decode); 9 K2 launches and
+                    some K1 launches
+  8. cli            `etude_tpu_torch.infer --decode-only` in-process on the
+                    pipeline's work dir cut to its first 30 s of bars, with
+                    synthetic condition notes, to a MIDI file that parses
 
-It prints a `{"kernels": [...]}` line, then `{"ok": true, "device": ...}` as
-its last line, and exits 0. Any failure raises and exits non-zero with no
-result line; so does a machine without CUDA, and a directory that holds this
-script without the package. It imports nothing of JAX or of etude_tpu.
+It prints a `{"kernels": [...]}` line, whose launches are those of the
+serving, structuralize, pipeline and cli runs, each counted from 0, then
+`{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
+raises and exits non-zero with no result line; so does a machine without
+CUDA, and a directory that holds this script without the package. It
+imports nothing of JAX or of etude_tpu.
 """
 
 from __future__ import annotations
@@ -67,6 +86,12 @@ ACT_ATOL = 5e-3
 # track (mean 0.0014 dB), while scaling the first conv's weights by 1.01
 # moves them by 1.6 dB and by 1.001 still by 0.16 dB.
 SEP_DB_ATOL = 0.1
+# Card (bf16) vs CPU (f32) hFT head activations (the six sigmoid maps), one
+# 512-frame segment of a 12 s click track under random weights: they differ
+# by 3.4e-3, while zeroing one attention layer's output moves them by
+# 1.2e-2 (a decoder self-attention) to 0.27 (the first cross-attention).
+HFT_ATOL = 6e-3
+BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
 
 
@@ -376,19 +401,16 @@ def check_tempo(tempo, seconds):
             raise RuntimeError(f"malformed tempo region {r!r:.200}")
 
 
-def structuralize(root: Path):
+def structuralize(root: Path, wav: Path) -> int:
     """Drive the port's Structuralize entry point on the card at full width
-    on a 240 s click track, twice (the first run includes cuDNN's and the
+    on the 240 s click track, twice (the first run includes cuDNN's and the
     allocator's first-use costs), then once under the profiler; returns the
-    work dir that holds its tempo.json and the warm run's K2 launches."""
-    import numpy as np
+    warm run's K2 launches."""
     import torch
     from etude_tpu_torch.config import load_config
     from etude_tpu_torch.infer import InferencePipeline
     from etude_tpu_torch.ops.dilated_attention import dilated_attention
 
-    wav = root / "click_240s.wav"
-    write_click_wav(wav, SONG_SECONDS, seed=0)
     config = load_config(None, {"paths": {
         "infer_output_dir": str(root / "outputs" / "infer"),
         "separator_model": str(root / "no_separator.ckpt"),
@@ -416,7 +438,7 @@ def structuralize(root: Path):
             raise RuntimeError(f"dilated_attention launched {launches} times in one "
                                "Beat-Transformer forward, expected 9")
         walls[run] = wall
-    profile_structuralize(pipeline, wav, walls["warm"])
+    profile_device(lambda: pipeline._run_stage2_structuralize(wav), walls["warm"])
     work = pipeline.work_dir
     beats = json.loads((work / "beat_pred.json").read_text())
     tempo = json.loads((work / "tempo.json").read_text())
@@ -427,30 +449,47 @@ def structuralize(root: Path):
         f"{len(beats['downbeat_pred'])} downbeats; tempo.json: {len(tempo)} region(s), "
         f"{sum(len(r['downbeats']) for r in tempo)} downbeats, "
         f"first {tempo[0]['time_sig']}/4 at {tempo[0]['bpm']:.2f} BPM")
-    return work, launches
+    return launches
 
 
-def profile_structuralize(pipeline, wav: Path, warm_wall: float) -> None:
+def profile_device(run, warm_wall: float):
     """One more warm run under torch.profiler: the device's busy time
-    against the unprofiled warm wall, and the kernels that take it."""
+    against the unprofiled warm wall, and the kernels that take it; returns
+    the busy time in ms, or None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipeline._run_stage2_structuralize(wav)
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         say("  profiler: no device time recorded; device busy share not measured")
-        return
+        return None
     say(f"  profiler: device busy {total_us / 1e3:.2f} ms against an unprofiled warm "
         f"wall of {1e3 * warm_wall:.2f} ms -> device idle share "
         f"{1 - total_us / 1e6 / warm_wall:.3f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         say(f"    {e.self_device_time_total / total_us:6.1%} {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d} launches  {e.key[:80]}")
+    return total_us / 1e3
+
+
+def hft_operations(c, n_segments: int):
+    """(bf16, f32) operations of the hFT forward over `n_segments`: two per
+    multiply-add of its matmuls and attention products, the heads in f32."""
+    H, P, T, nb, nn = c.hid_dim, c.pf_dim, c.n_frame, c.n_bin, c.n_note
+    cross = 2 * nn * H * H + 2 * nb * H * H + 2 * nn * nb * H     # q, o; k, v; QK, PV
+    per_frame = (nb * c.n_proc * H
+                 + c.encoder_n_layer * (4 * nb * H * H + 2 * nb * nb * H + 2 * nb * H * P)
+                 + cross + 2 * nn * H * P
+                 + (c.decoder_n_layer - 1) * (4 * nn * H * H + 2 * nn * nn * H + cross
+                                              + 2 * nn * H * P)
+                 + c.decoder_n_layer * (4 * nn * H * H + 2 * nn * T * H + 2 * nn * H * P))
+    heads = 2 * nn * H * (3 + c.n_velocity)
+    return 2 * per_frame * T * n_segments, 2 * heads * T * n_segments
 
 
 def stage2_parity(root: Path):
@@ -528,29 +567,251 @@ def stage2_parity(root: Path):
         raise RuntimeError(f"the activation check missed a control ({min(controls):.3g})")
 
 
-def write_work_dir(root: Path, repo: Path, tempo_json: Path) -> Path:
-    """A decode-only work dir (the given tempo.json, notes, volume) and a
-    settings file that points the CLI at it with the full-width decoder
-    config. Bars are capped at 32 tokens: the tempo grid of a 240 s song
-    holds over a hundred bars, and random weights rarely end a bar early."""
-    work = root / "outputs" / "infer" / "temp"
-    work.mkdir(parents=True)
-    (work / "tempo.json").write_bytes(tempo_json.read_bytes())
-    notes = [{"onset": 1.0 + 0.5 * i, "offset": 1.4 + 0.5 * i,
-              "pitch": 48 + (7 * i) % 36, "velocity": 80} for i in range(40)]
-    (work / "extract.json").write_text(json.dumps(notes))
-    (work / "volume.json").write_text(json.dumps([0.5] * 4800))
+def check_notes(notes, seconds, min_duration=0.08):
+    """extract.json's contract: {onset, offset, pitch, velocity} per note,
+    finite times inside the song, at least the minimum duration, piano
+    pitches, MIDI velocities, sorted by (onset, pitch)."""
+    import math
+
+    if not isinstance(notes, list):
+        raise RuntimeError(f"extract.json holds no list: {notes!r:.200}")
+    for n in notes:
+        if (set(n) != {"onset", "offset", "pitch", "velocity"}
+                or not (math.isfinite(n["onset"]) and math.isfinite(n["offset"]))
+                or not -1e-9 <= n["onset"] < n["offset"] <= seconds + 1.0
+                or n["offset"] - n["onset"] < min_duration
+                or not (21 <= n["pitch"] <= 108 and 1 <= n["velocity"] <= 127)):
+            raise RuntimeError(f"malformed note {n!r:.200}")
+    if notes != sorted(notes, key=lambda n: (n["onset"], n["pitch"])):
+        raise RuntimeError("extract.json is not sorted by (onset, pitch)")
+
+
+def extract(root: Path, wav: Path) -> None:
+    """Drive the port's Extract entry point on the card at the committed
+    extractor's full width (random weights from seed 0) on the 240 s click
+    track, cold and warm, then once under the profiler."""
+    import torch
+    from etude_tpu_torch.config import ExtractorConfig
+    from etude_tpu_torch.data.extractor import AMTAPC_Extractor
+    from etude_tpu_torch.utils.profiling import StageTimer
+
+    extractor = AMTAPC_Extractor(ExtractorConfig(), model_path=root / "no_extractor.ckpt",
+                                 device="cuda", allow_random_weights=True)
+    c = extractor.amt_config
+    say(f"  hFT: {sum(p.numel() for p in extractor.model.parameters())} parameters, hidden "
+        f"{c.hid_dim}, {c.encoder_n_layer}+{c.decoder_n_layer}+{c.decoder_n_layer} layers of "
+        f"{c.encoder_n_head} heads, {c.n_frame}-frame segments, {extractor.segment_batch} "
+        f"per forward")
+    timer = StageTimer(torch.device("cuda"))
+    out = root / "extract.json"
+    walls = {}
+    for run in ("cold", "warm"):
+        timer.spans.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        notes = extractor.extract(wav, out, timer=timer)
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t
+        st = extractor.stats
+        say(f"  {run}: {walls[run]:.3f} s wall, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {st['segments']} segments "
+            f"in {st['groups']} groups; {st['notes_picked']} notes picked, "
+            f"{st['notes_kept']} kept after the minimum-duration filter")
+        for name, seconds in timer.summary().items():
+            say(f"    {name:<26s} {1e3 * seconds:10.2f} ms")
+        if st["notes_picked"] == 0:
+            raise RuntimeError("the peak picker found no onset in the hFT's maps")
+    busy = profile_device(lambda: extractor.extract(wav, out), walls["warm"])
+    st = extractor.stats
+    bf16, f32 = hft_operations(c, st["groups"] * extractor.segment_batch)
+    bound_ms = 1e3 * (bf16 / BF16_PEAK + f32 / F32_PEAK)
+    say(f"  hFT forward over {st['groups'] * extractor.segment_batch} segments: "
+        f"{bf16 / 1e12:.2f} TFLOP bf16 + {f32 / 1e12:.3f} TFLOP f32 -> at the card's peaks "
+        f"{bound_ms:.2f} ms; the device was busy {busy or float('nan'):.2f} ms for all of "
+        f"Extract ({(busy or float('nan')) / bound_ms:.1f}x)")
+    loaded = json.loads(out.read_text())
+    check_notes(loaded, SONG_SECONDS)
+    if loaded != notes:
+        raise RuntimeError("extract.json differs from the notes extract returned")
+    frontend_ab(extractor)
+
+
+def frontend_ab(extractor) -> None:
+    """The folded front end as the port computes it (one matmul over the
+    n_proc-frame windows, its output already [B, T, bin, H]) against
+    `F.conv2d` of the same filter and the copy to that layout, at the main
+    path's shape, bf16, L2 flushed."""
+    import torch
+    import torch.nn.functional as F
+    from etude_tpu_torch.utils.kernel_bench import L2Flush, time_ms
+
+    c = extractor.amt_config
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    spec = torch.randn(extractor.segment_batch, c.n_bin, c.n_frame + 2 * c.n_margin,
+                       device="cuda", generator=gen).to(torch.bfloat16)
+    wf = extractor.model.folded_frontend()[0].to(torch.bfloat16)
+
+    def matmul():
+        return spec.transpose(1, 2).unfold(1, c.n_proc, 1) @ wf
+
+    def conv():
+        return F.conv2d(spec[:, None], wf.T[:, None, None, :]).permute(0, 3, 2, 1).contiguous()
+
+    a, b = matmul(), conv()
+    err = (a.float() - b.float()).abs().max().item()
+    flush = L2Flush()
+    say(f"  front end at [{spec.shape[0]}, {c.n_bin}, {spec.shape[2]}] x [{c.n_proc}, "
+        f"{c.hid_dim}] bf16: unfold+matmul {time_ms(matmul, flush=flush):.4f} ms, "
+        f"F.conv2d+copy {time_ms(conv, flush=flush):.4f} ms, max|diff| {err:.3g}")
+
+
+def extract_parity(root: Path) -> None:
+    """The card's bf16 hFT heads against the port's CPU f32 path on the first
+    segment of a 12 s click track, same seeded random weights, beside
+    controls it must catch: one attention layer's output zeroed at a time on
+    the card. The card's f32 log-mel (TF32 off) against the CPU's is
+    reported."""
+    import numpy as np
+    import torch
+    import etude_tpu_torch.models.amt as amt
+    from etude_tpu_torch.config import ExtractorConfig
+    from etude_tpu_torch.data.extractor import AMTAPC_Extractor
+
+    wav = root / "click_12s.wav"
+    write_click_wav(wav, 12.0, seed=1)
+    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=root / "none.ckpt",
+                                     device=device, allow_random_weights=True)
+            for device in ("cpu", "cuda")}
+    feature = make["cpu"]._wav2feature(wav)
+    mel_gap = (make["cuda"]._wav2feature(wav).cpu() - feature).abs().max().item()
+    segs, _ = make["cpu"]._segment(feature.numpy())
+    spec = torch.from_numpy(segs[:1])
+    keys = [f"{h}_{b}" for h in amt.HEADS for b in ("freq", "time")]
+
+    def heads(device):
+        x = make[device]
+        with torch.inference_mode():
+            out = x.model(spec.to(x.device), x.compute_dtype)
+        return {k: out[k].cpu().numpy() for k in keys}
+
+    ref, out = heads("cpu"), heads("cuda")
+    if not all(np.isfinite(out[k]).all() and out[k].shape == ref[k].shape for k in keys):
+        raise RuntimeError("card hFT heads non-finite or of the wrong shape")
+    err = max(float(np.abs(out[k] - ref[k]).max()) for k in keys)
+    model = make["cuda"].model
+    layers = ([(f"enc{i}", layer.attn) for i, layer in enumerate(model.enc_layers)]
+              + [("dec0.cross", model.dec_zero.cross)]
+              + [(f"dec{i + 1}.{n}", getattr(layer, a)) for i, layer in enumerate(model.dec_layers)
+                 for n, a in (("self", "self_attn"), ("cross", "cross"))]
+              + [(f"time{i}", layer.attn) for i, layer in enumerate(model.time_layers)])
+    real = amt._mha
+    controls = {}
+    try:
+        for name, target in layers:
+            def zeroed(q_in, kv_in, p, n_heads, dtype, target=target):
+                out = real(q_in, kv_in, p, n_heads, dtype)
+                return torch.zeros_like(out) if p is target else out
+            amt._mha = zeroed
+            got = heads("cuda")
+            controls[name] = max(float(np.abs(got[k] - ref[k]).max()) for k in keys)
+    finally:
+        amt._mha = real
+    say(f"  log-mel [{feature.shape[0]}, {feature.shape[1]}], card f32 vs CPU f32 (reported "
+        f"only): max|diff| {mel_gap:.3g}")
+    say(f"  hFT heads [1 segment, {spec.shape[2]} frames], card bf16 vs CPU f32: max|diff| "
+        f"{err:.3g} (atol {HFT_ATOL}); controls, one attention layer's output zeroed: "
+        + " ".join(f"{n} {v:.3g}" for n, v in controls.items()))
+    if err > HFT_ATOL:
+        raise RuntimeError(f"card vs CPU hFT heads differ by {err:.3g} > {HFT_ATOL}")
+    if min(controls.values()) <= HFT_ATOL:
+        raise RuntimeError(f"the hFT check missed a control ({min(controls.values()):.3g})")
+
+
+def pipeline_settings(root: Path, repo: Path) -> Path:
+    """A settings file that points the CLI at `root`, with every model path
+    missing (random weights from seed 0), the full-width decoder config, and
+    bars capped at 32 tokens: the tempo grid of a 240 s song holds over a
+    hundred bars, and random weights rarely end a bar early."""
     settings = root / "settings.json"
+    root.mkdir(parents=True, exist_ok=True)
     settings.write_text(json.dumps({
         "paths": {
             "infer_output_dir": str(root / "outputs" / "infer"),
+            "extractor_model": str(root / "no_extractor.ckpt"),
+            "separator_model": str(root / "no_separator.ckpt"),
+            "beat_detector_model": str(root / "no_beat.ckpt"),
             "decoder_config": str(repo / "checkpoints/decoder/etude_decoder_config.json"),
             "decoder_vocab": str(repo / "checkpoints/decoder/vocab.json"),
-            "decoder_model": str(root / "no_checkpoint.ckpt"),
+            "decoder_model": str(root / "no_decoder.ckpt"),
         },
         "decoder": {"max_bar_token_limit": 32},
     }))
     return settings
+
+
+def pipeline(root: Path, wav: Path):
+    """`python -m etude_tpu_torch.infer --input` in-process on the 240 s song;
+    returns the work dir and the run's K1 and K2 launches."""
+    import torch
+    from etude_tpu_torch import infer
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+    from etude_tpu_torch.ops.dilated_attention import dilated_attention
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    settings = pipeline_settings(root, ROOT)
+    decode_attention.launches = dilated_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rc = infer.main(["--config", str(settings), "--input", str(wav), "--allow-random-weights",
+                     "--output_name", "pipeline", "--seed", "7"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1, k2 = decode_attention.launches, dilated_attention.launches
+    work = root / "outputs" / "infer" / "temp"
+    midi = root / "outputs" / "infer" / "pipeline.mid"
+    if rc != 0 or not midi.exists():
+        raise RuntimeError(f"infer --input exited {rc}; {midi} exists: {midi.exists()}")
+    notes = json.loads((work / "extract.json").read_text())
+    check_notes(notes, SONG_SECONDS)
+    volume = json.loads((work / "volume.json").read_text())
+    if (len(volume) != 1 + int(SONG_SECONDS * 22050) // (22050 // 20)
+            or not all(0.0 <= v <= 1.0 for v in volume)):
+        raise RuntimeError(f"volume.json malformed: {len(volume)} values")
+    beats = json.loads((work / "beat_pred.json").read_text())
+    if set(beats) != {"beat_pred", "downbeat_pred"} or not beats["beat_pred"]:
+        raise RuntimeError(f"beat_pred.json malformed or empty: {str(beats)[:200]}")
+    tempo = json.loads((work / "tempo.json").read_text())
+    check_tempo(tempo, SONG_SECONDS)
+    played = read_midi_notes(midi)
+    say(f"  --input wall {wall:.3f} s; extract.json {len(notes)} notes, volume.json "
+        f"{len(volume)} values, {len(beats['beat_pred'])} beats, tempo.json "
+        f"{len(tempo)} region(s); {midi.name}: {midi.stat().st_size} bytes, {len(played)} "
+        f"notes; launches K1 {k1}, K2 {k2} (expected 9)")
+    if k2 != 9:
+        raise RuntimeError(f"dilated_attention launched {k2} times, expected 9")
+    if k1 == 0 or k1 % 8:
+        raise RuntimeError(f"decode_attention launched {k1} times, not 8 per S=1 chunk")
+    return work, k1, k2
+
+
+def cli_work_dir(root: Path, src: Path, seconds: float) -> Path:
+    """A decode-only work dir: `src`'s tempo.json cut to the bars of its
+    first `seconds` and its volume.json, with 40 synthetic condition notes
+    (random extractor weights keep no note of the click track)."""
+    work = root / "outputs" / "infer" / "temp"
+    work.mkdir(parents=True)
+    tempo = []
+    for region in json.loads((src / "tempo.json").read_text()):
+        downbeats = [d for d in region["downbeats"] if d < seconds]
+        if downbeats:
+            tempo.append(dict(region, downbeats=downbeats))
+    (work / "tempo.json").write_text(json.dumps(tempo))
+    notes = [{"onset": 1.0 + 0.5 * i, "offset": 1.4 + 0.5 * i,
+              "pitch": 48 + (7 * i) % 36, "velocity": 80} for i in range(40)]
+    (work / "extract.json").write_text(json.dumps(notes))
+    (work / "volume.json").write_bytes((src / "volume.json").read_bytes())
+    return pipeline_settings(root, ROOT)
 
 
 def main() -> int:
@@ -655,23 +916,39 @@ def main() -> int:
                                            "sustain": 1, "rhythm_intensity": 1})
 
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        song = tmp / "click_240s.wav"
+        write_click_wav(song, SONG_SECONDS, seed=0)
         with phase("structuralize"):
-            work, k2_launches = structuralize(Path(tmp) / "stage2")
-            stage2_parity(Path(tmp))
+            k2_launches = structuralize(tmp / "stage2", song)
+            stage2_parity(tmp)
+
+        with phase("extract"):
+            extract(tmp / "stage1", song)
+            extract_parity(tmp)
+
+        with phase("pipeline"):
+            work, k1, k2 = pipeline(tmp / "pipeline", song)
+            launches += k1
+            k2_launches += k2
 
         with phase("cli"):
             from etude_tpu_torch import infer
+            from etude_tpu_torch.ops.decode_attention import decode_attention
             from etude_tpu_torch.utils.midi import read_midi_notes
 
-            settings = write_work_dir(Path(tmp) / "cli", ROOT, work / "tempo.json")
+            settings = cli_work_dir(tmp / "cli", work, 30.0)
+            decode_attention.launches = 0
             rc = infer.main(["--config", str(settings), "--decode-only",
                              "--allow-random-weights", "--output_name", "smoke",
                              "--seed", "7"])
-            out = Path(tmp) / "cli" / "outputs" / "infer" / "smoke.mid"
+            launches += decode_attention.launches
+            out = tmp / "cli" / "outputs" / "infer" / "smoke.mid"
             if rc != 0 or not out.exists():
                 raise RuntimeError(f"infer exited {rc}; {out} exists: {out.exists()}")
             notes = read_midi_notes(out)
-            say(f"  {out.name}: {out.stat().st_size} bytes, {len(notes)} notes")
+            say(f"  {out.name}: {out.stat().st_size} bytes, {len(notes)} notes; K1 launches "
+                f"{decode_attention.launches}")
 
     main_row = rows[len(shapes) - 1]
     say(json.dumps({"kernels": [{

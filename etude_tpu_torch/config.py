@@ -1,7 +1,9 @@
-"""Settings of the ported paths (Structuralize, Decode), as plain dataclasses.
+"""Settings of the ported paths (Extract, Structuralize, Decode), as plain
+dataclasses.
 
 Copied from the JAX package's pydantic schema (etude_tpu/config/schema.py:
-the model paths :46-53, BeatDetectorConfig :140 with its model config,
+the model paths :46-53, ExtractorConfig :71-125 with its five sections,
+BeatDetectorConfig :140 with its model config,
 SeparatorConfig :154 and the DecoderConfig generation fields :196-216),
 without pydantic: the port runs where neither pydantic nor PyYAML is
 installed. A settings file is read only when the caller names one: a `.json`
@@ -18,12 +20,76 @@ from typing import Any, Dict, List, Optional, Union
 
 @dataclasses.dataclass
 class PathConfig:
+    extractor_model: Path = Path("checkpoints/extractor/latest.ckpt")
     beat_detector_model: Path = Path("checkpoints/beat_detector/latest.ckpt")
     separator_model: Path = Path("checkpoints/separator/latest.ckpt")
     decoder_model: Path = Path("checkpoints/decoder/latest.ckpt")
     decoder_config: Path = Path("checkpoints/decoder/etude_decoder_config.json")
     decoder_vocab: Path = Path("checkpoints/decoder/vocab.json")
     infer_output_dir: Path = Path("outputs/infer")
+
+
+@dataclasses.dataclass
+class ExtractorFeatureConfig:
+    sr: int = 16000
+    hop_sample: int = 256
+    mel_bins: int = 256
+    n_bins: int = 256
+    fft_bins: int = 2048
+    window_length: int = 2048
+    log_offset: float = 1e-8
+    window: str = "hann"
+    pad_mode: str = "constant"
+
+
+@dataclasses.dataclass
+class ExtractorInputConfig:
+    margin_b: int = 32
+    margin_f: int = 32
+    num_frame: int = 512
+    min_value: float = -18.0
+
+
+@dataclasses.dataclass
+class ExtractorMidiConfig:
+    note_min: int = 21
+    note_max: int = 108
+    num_note: int = 88
+    num_velocity: int = 128
+
+
+@dataclasses.dataclass
+class ExtractorModelConfig:
+    cnn_channel: int = 4
+    cnn_kernel: int = 5
+    dropout: float = 0.1
+    transformer_hid_dim: int = 256
+    transformer_pf_dim: int = 512
+    encoder_n_head: int = 4
+    encoder_n_layer: int = 3
+    decoder_n_head: int = 4
+    decoder_n_layer: int = 3
+    sv_dim: int = 24
+
+
+@dataclasses.dataclass
+class ExtractorInferConfig:
+    onset_threshold: float = 0.5
+    offset_threshold: float = 1.0
+    frame_threshold: float = 0.5
+    min_duration: float = 0.08
+    # Segments of num_frame frames per forward.
+    segment_batch: int = 8
+
+
+@dataclasses.dataclass
+class ExtractorConfig:
+    feature: ExtractorFeatureConfig = dataclasses.field(
+        default_factory=ExtractorFeatureConfig)
+    input: ExtractorInputConfig = dataclasses.field(default_factory=ExtractorInputConfig)
+    midi: ExtractorMidiConfig = dataclasses.field(default_factory=ExtractorMidiConfig)
+    model: ExtractorModelConfig = dataclasses.field(default_factory=ExtractorModelConfig)
+    infer: ExtractorInferConfig = dataclasses.field(default_factory=ExtractorInferConfig)
 
 
 @dataclasses.dataclass
@@ -82,6 +148,7 @@ class DecoderConfig:
 @dataclasses.dataclass
 class EtudeConfig:
     paths: PathConfig = dataclasses.field(default_factory=PathConfig)
+    extractor: ExtractorConfig = dataclasses.field(default_factory=ExtractorConfig)
     beat_detector: BeatDetectorConfig = dataclasses.field(
         default_factory=BeatDetectorConfig)
     separator: SeparatorConfig = dataclasses.field(default_factory=SeparatorConfig)

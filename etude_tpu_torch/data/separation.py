@@ -25,7 +25,7 @@ from ..models.separator import Separator, SeparatorConfig
 from ..ops.mel import (dft_matrices, frame_power_spectrum, hann_window,
                        mel_filterbank, reflect_pad_host)
 from ..utils import model_loader
-from ..utils.audio import decode_audio
+from ..utils.audio import decode_audio, resample_audio
 from ..utils.device import compute_dtype_for, resolve_device
 from ..utils.profiling import maybe_span
 from ..weights import init_separator_params_np, separator_from_jax
@@ -135,13 +135,19 @@ class SourceSeparator:
         audio_path: Union[str, Path],
         return_device: bool = False,
         timer=None,
+        wave_sr=None,
     ):
         """Audio → dB-mel features (5, time, 128).
 
         return_device=True hands back the device tensor (the beat detector
-        reads it there, with no host round trip)."""
+        reads it there, with no host round trip). `wave_sr=(wave,
+        native_sr)` reuses a decoded waveform; at 44.1 kHz it is not
+        resampled, so WAV input still crosses as int16."""
         with maybe_span(timer, "sep: wav decode"):
-            wave, _ = decode_audio(audio_path, target_sr=SEP_SR, mono=True)
+            if wave_sr is not None:
+                wave = resample_audio(wave_sr[0], wave_sr[1], SEP_SR)
+            else:
+                wave, _ = decode_audio(audio_path, target_sr=SEP_SR, mono=True)
             padded, true_frames = pad_bucket_wave(wave)
             # Ship int16 when the padded wave is exactly int16 PCM / 32768
             # (WAV input that was not resampled): the device rescale

@@ -1,50 +1,59 @@
-"""Piano-cover generation on one GPU, as far as it is ported:
-`python -m etude_tpu_torch.infer --decode-only [--device cpu] ...`
+"""Piano-cover generation on one GPU:
+`python -m etude_tpu_torch.infer --input song.wav [--device cpu] ...` or
+`... --decode-only ...`.
 
-The port of the repository's `infer.py`. Decode (:144-275, CLI :359-440)
-reads the work-dir contract (`extract.json`, `tempo.json`, `volume.json`
-under `<infer_output_dir>/temp`), tokenizes the condition, runs the streaming
-engine and writes `<infer_output_dir>/<name>.mid` with the port's own
-tokenizer and MIDI writer; `--sweep` decodes all 27 polyphony/rhythm/sustain
-combinations as 27 streams on one card. Structuralize (:121-142) is
-`InferencePipeline._run_stage2_structuralize(audio_path)`: audio →
-separation features → beat activations → DBN → `beat_pred.json` and
-`tempo.json` in the work dir. Extract, and with it the `--input` pipeline,
-is not ported yet; nor are `--engine rebuild` and `--attrs-prior`.
+The port of the repository's `infer.py`. `--input` runs the whole pipeline
+(`run` :283-352): the audio is copied into the work dir as `origin.wav` and
+decoded once; Extract (audio → `extract.json`, :104-114), Structuralize
+(audio → separation features → beat activations → DBN → `beat_pred.json`
+and `tempo.json`, :121-142) and the volume map (`volume.json`, :116-119)
+run as three concurrent threads, each on a CUDA stream of its own, while a
+fourth makes the decoder; then Decode (:144-275) reads the work-dir
+contract, tokenizes the condition, runs the streaming engine and writes
+`<infer_output_dir>/<name>.mid` with the port's own tokenizer and MIDI
+writer. `--decode-only` runs Decode alone on the work dir's intermediates;
+`--sweep` decodes all 27 polyphony/rhythm/sustain combinations as 27
+streams on one card. A URL input, `--engine rebuild` and `--attrs-prior`
+are not ported.
 
 It runs on CUDA unless `--device cpu` is given; with no GPU it raises rather
 than carry on on the CPU. With no `--config`, the settings are the defaults
-of `etude_tpu_torch.config`.
+of `etude_tpu_torch.config`. `ETUDE_TRACE_DIR` writes a `torch.profiler`
+trace of the run there.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
+import shutil
 import sys
-import time
 from pathlib import Path
 from typing import Optional
+from urllib.parse import urlparse
 
 import torch
 
 from .config import EtudeConfig, load_config
 from .data.beat_analyzer import BeatAnalyzer
 from .data.beat_detector import BeatDetector
+from .data.extractor import AMTAPC_Extractor
 from .data.separation import SourceSeparator
 from .data.tokenizer import TinyREMITokenizer, split_sequence_into_bars
 from .data.vocab import Vocab
 from .models.generate_stream import StreamingGenerationEngine
+from .utils.audio import analyze_volume, decode_audio, save_volume_map
 from .utils.device import resolve_device
 from .utils.logger import logger
 from .utils.model_loader import load_etude_decoder
-from .utils.profiling import StageTimer
+from .utils.profiling import StageTimer, trace
 
 _INTERMEDIATES = ("extract.json", "tempo.json", "volume.json")
 
 
 class InferencePipeline:
-    """Audio → Structuralize outputs; work dir (Extract + Structuralize
-    outputs) → piano-cover MIDI."""
+    """Audio (a local file) → piano-cover MIDI."""
 
     def __init__(self, config: EtudeConfig, device=None,
                  allow_random_weights: bool = False):
@@ -65,6 +74,7 @@ class InferencePipeline:
         """A missing checkpoint of a named stage is a hard error unless
         random weights are explicitly allowed (smoke runs and tests)."""
         paths = {
+            "extract": [("extractor", self.config.paths.extractor_model)],
             "structuralize": [("separator", self.config.paths.separator_model),
                               ("beat detector", self.config.paths.beat_detector_model)],
             "decode": [("decoder", self.config.paths.decoder_model)],
@@ -78,7 +88,59 @@ class InferencePipeline:
                          "pass --allow-random-weights to override")
             sys.exit(1)
 
-    def _run_stage2_structuralize(self, audio_path: Path) -> None:
+    @contextlib.contextmanager
+    def _stage_stream(self):
+        """A CUDA stream of its own for a stage run on another thread, so
+        that its spans synchronize its work only; a no-op on the CPU."""
+        if self.device.type != "cuda":
+            yield
+            return
+        stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            yield
+        stream.synchronize()
+
+    def _timed(self, name: str, fn, *args):
+        with self._stage_stream(), self.timer.span(name, nested=True):
+            return fn(*args)
+
+    def _prepare_audio(self, source: str) -> Path:
+        """The input copied into the work dir as `origin.wav`."""
+        logger.step("Preparing source audio")
+        if urlparse(source).scheme in ("http", "https"):
+            raise NotImplementedError(
+                f"cannot fetch the URL {source}: downloading audio is not yet "
+                "ported to etude_tpu_torch (it needs the network and yt-dlp); "
+                "download it and pass the local file")
+        if not Path(source).is_file():
+            logger.error(f"input '{source}' is neither a URL nor a local file")
+            sys.exit(1)
+        local = self.work_dir / "origin.wav"
+        shutil.copy(source, local)
+        return local
+
+    def _run_stage1_extract(self, audio_path: Path, wave_sr=None) -> None:
+        """Audio → `extract.json` in the work dir."""
+        logger.stage("Extract: audio → feature notes")
+        extractor = AMTAPC_Extractor(
+            self.config.extractor, model_path=self.config.paths.extractor_model,
+            device=self.device, allow_random_weights=self.allow_random_weights)
+        extractor.extract(audio_path, self.work_dir / "extract.json",
+                          timer=self.timer, wave_sr=wave_sr)
+
+    def _run_volume(self, audio_path: Path, wave_sr=None) -> None:
+        """Audio → `volume.json` in the work dir (host only)."""
+        with self.timer.span("extract: volume analysis", nested=True):
+            volume = analyze_volume(audio_path, wave_sr=wave_sr)
+            save_volume_map(volume, self.work_dir / "volume.json")
+
+    def _load_decoder(self):
+        with self._stage_stream():
+            return load_etude_decoder(
+                self.config.paths.decoder_config, self.config.paths.decoder_model,
+                device=self.device, allow_random_weights=self.allow_random_weights)
+
+    def _run_stage2_structuralize(self, audio_path: Path, wave_sr=None) -> None:
         """Audio → `beat_pred.json` and `tempo.json` in the work dir; the
         separation features stay on the device for the beat model."""
         logger.stage("Structuralize: separation + beat grid")
@@ -87,7 +149,7 @@ class InferencePipeline:
         separator = SourceSeparator(model_path=paths.separator_model, device=self.device,
                                     allow_random_weights=self.allow_random_weights)
         features = separator.separate_features(audio_path, return_device=True,
-                                               timer=self.timer)
+                                               timer=self.timer, wave_sr=wave_sr)
 
         logger.step("Beat/downbeat detection")
         detector = BeatDetector(self.config.beat_detector,
@@ -96,29 +158,27 @@ class InferencePipeline:
         detector.detect(features, self.work_dir / "beat_pred.json", timer=self.timer)
 
         logger.step("Tempo analysis")
-        with self.timer.span("tempo: analysis"):
+        with self.timer.span("tempo: analysis", nested=True):
             analyzer = BeatAnalyzer()
             tempo = analyzer.analyze(self.work_dir / "beat_pred.json")
             analyzer.save_tempo_data(tempo, self.work_dir / "tempo.json")
 
     def _run_stage3_decode(self, target_attributes: dict, final_filename: str,
-                           sweep: bool = False, seed: int = 0) -> None:
+                           sweep: bool = False, seed: int = 0, decoder=None) -> None:
+        """The work dir's intermediates → MIDI; `decoder` is a (model,
+        config) pair made beforehand, else it is loaded here."""
         logger.stage("Decode: conditional generation")
-        t0 = time.perf_counter()
-        paths = self.config.paths
-        vocab = Vocab.load(paths.decoder_vocab)
-        model, model_config = load_etude_decoder(
-            paths.decoder_config, paths.decoder_model, device=self.device,
-            allow_random_weights=self.allow_random_weights,
-        )
-        tokenizer = TinyREMITokenizer(tempo_path=self.work_dir / "tempo.json")
-        condition_events = tokenizer.encode(self.work_dir / "extract.json")
-        condition_ids = vocab.encode_sequence(condition_events)
-        all_x_bars = split_sequence_into_bars(
-            condition_ids, vocab.bar_bos_id, vocab.bar_eos_id
-        )
-        logger.info(f"prepared {len(all_x_bars)} condition bars "
-                    f"({time.perf_counter() - t0:.2f} s)")
+        with self.timer.span("decode: model load", nested=True):
+            vocab = Vocab.load(self.config.paths.decoder_vocab)
+            model, model_config = decoder or self._load_decoder()
+        with self.timer.span("decode: tokenize condition", nested=True):
+            tokenizer = TinyREMITokenizer(tempo_path=self.work_dir / "tempo.json")
+            condition_events = tokenizer.encode(self.work_dir / "extract.json")
+            condition_ids = vocab.encode_sequence(condition_events)
+            all_x_bars = split_sequence_into_bars(
+                condition_ids, vocab.bar_bos_id, vocab.bar_eos_id
+            )
+        logger.info(f"prepared {len(all_x_bars)} condition bars")
         if not all_x_bars:
             logger.warn("no condition bars; nothing to decode")
             return
@@ -151,15 +211,15 @@ class InferencePipeline:
             logger.success(f"sweep MIDI files saved to {self.output_dir}")
             return
 
-        t1 = time.perf_counter()
-        bars = engine.generate(
-            model, all_x_bars, [target_attributes] * len(all_x_bars),
-            temperature=d.temperature, top_p=d.top_p,
-            max_output_tokens=d.max_output_tokens, seed=seed, progress=True,
-        )
-        logger.info(f"generated {sum(len(b) for b in bars)} tokens in "
-                    f"{time.perf_counter() - t1:.2f} s")
-        out = self._write_midi(vocab, tokenizer, bars, final_filename)
+        with self.timer.span("decode: generate", nested=True):
+            bars = engine.generate(
+                model, all_x_bars, [target_attributes] * len(all_x_bars),
+                temperature=d.temperature, top_p=d.top_p,
+                max_output_tokens=d.max_output_tokens, seed=seed, progress=True,
+            )
+        logger.info(f"generated {sum(len(b) for b in bars)} tokens")
+        with self.timer.span("decode: detokenize+midi", nested=True):
+            out = self._write_midi(vocab, tokenizer, bars, final_filename)
         if out is not None:
             logger.success(f"final MIDI saved to {out.resolve()}")
 
@@ -179,23 +239,53 @@ class InferencePipeline:
         TinyREMITokenizer.note_to_midi(notes, out)
         return out
 
-    def run(self, target_attributes: dict, final_filename: str = "output",
+    def _run_stages_1_2(self, audio_path: Path):
+        """Extract, Structuralize and the volume map on three threads, each
+        on a stream of its own, over one decode of the audio, while a fourth
+        makes the decoder; returns the decoder (JAX `run` :296-339)."""
+        with self.timer.span("audio decode"):
+            wave_sr = decode_audio(audio_path, target_sr=None, mono=True)
+        with self.timer.span("stage1+2_concurrent"), \
+                concurrent.futures.ThreadPoolExecutor(4) as pool:
+            stages = [
+                pool.submit(self._timed, "stage1_extract", self._run_stage1_extract,
+                            audio_path, wave_sr),
+                pool.submit(self._timed, "stage2_structuralize",
+                            self._run_stage2_structuralize, audio_path, wave_sr),
+                pool.submit(self._run_volume, audio_path, wave_sr),
+            ]
+            decoder = pool.submit(self._load_decoder)
+            for stage in stages:
+                stage.result()
+            return decoder.result()
+
+    def run(self, audio_source: Optional[str], target_attributes: dict,
+            final_filename: str = "output", decode_only: bool = False,
             sweep: bool = False, seed: int = 0) -> None:
-        """Decode-only: the work dir's intermediates → MIDI."""
-        logger.skip("stages 1 & 2 (decode-only mode)")
-        self._require_weights("decode")
-        for name in _INTERMEDIATES:
-            if not (self.work_dir / name).exists():
-                logger.error(f"missing intermediate '{name}' in {self.work_dir}")
-                sys.exit(1)
-        with torch.no_grad():
-            self._run_stage3_decode(target_attributes, final_filename, sweep, seed)
+        """Audio → MIDI, or with `decode_only` the work dir's intermediates
+        → MIDI."""
+        decoder = None
+        with trace(), torch.no_grad():
+            if not decode_only:
+                self._require_weights("extract", "structuralize", "decode")
+                decoder = self._run_stages_1_2(self._prepare_audio(audio_source))
+            else:
+                logger.skip("stages 1 & 2 (decode-only mode)")
+                self._require_weights("decode")
+                for name in _INTERMEDIATES:
+                    if not (self.work_dir / name).exists():
+                        logger.error(f"missing intermediate '{name}' in {self.work_dir}")
+                        sys.exit(1)
+            with self.timer.span("stage3_decode"):
+                self._run_stage3_decode(target_attributes, final_filename, sweep, seed,
+                                        decoder=decoder)
+        self.timer.print_summary("Pipeline timing")
         logger.success("inference pipeline finished")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="Decode-only piano cover generation (PyTorch port)."
+        description="Piano cover generation on one GPU (PyTorch port)."
     )
     parser.add_argument("--config", type=str, default=None,
                         help="settings file (.json, or YAML with PyYAML)")
@@ -203,8 +293,8 @@ def main(argv=None) -> int:
 
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--input", type=str,
-                        help="path or URL of the source audio (needs Extract, "
-                             "not yet ported)")
+                        help="path of the source audio (WAV; other formats "
+                             "need ffmpeg; a URL is not ported)")
     source.add_argument("--decode-only", action="store_true",
                         help="reuse intermediates in the work dir")
 
@@ -250,16 +340,11 @@ def main(argv=None) -> int:
         "sustain_bin": args.sustain,
         "pitch_overlap_bin": args.overlap,
     }
-    if not args.decode_only:
-        raise NotImplementedError(
-            "the full --input pipeline needs Extract, which is not yet "
-            "ported to etude_tpu_torch; use --decode-only"
-        )
     InferencePipeline(
         config, device=args.device,
         allow_random_weights=args.allow_random_weights,
-    ).run(target_attributes, final_filename=args.output_name,
-          sweep=args.sweep, seed=args.seed)
+    ).run(args.input, target_attributes, final_filename=args.output_name,
+          decode_only=args.decode_only, sweep=args.sweep, seed=args.seed)
     return 0
 
 

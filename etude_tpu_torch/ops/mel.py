@@ -1,5 +1,5 @@
-"""Mel filterbanks and the matmul DFT of the separation features (JAX
-counterpart: etude_tpu/ops/mel.py, the parts the Structuralize stage uses).
+"""Mel filterbanks, the matmul DFT of the separation features and the
+extractor's log-mel (JAX counterpart: etude_tpu/ops/mel.py).
 
 The DFT is two f32 matmuls against cos/sin bases, as in the JAX package; it
 lies outside any TPU kernel there and is a plain `torch.matmul` here. The
@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 
 def hz_to_mel_htk(f):
@@ -101,3 +103,66 @@ def frame_power_spectrum(frames: torch.Tensor, cos_m: torch.Tensor,
     re = frames @ cos_m
     im = frames @ sin_m
     return re * re + im * im
+
+
+@functools.lru_cache(maxsize=4)
+def _mel_fb_device(sr: int, n_fft: int, n_mels: int, fmin: float,
+                   fmax: Optional[float], device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(device)
+
+
+def log_mel_spectrogram(
+    wave: np.ndarray,
+    *,
+    sr: int = 16000,
+    n_fft: int = 2048,
+    hop: int = 256,
+    win_length: int = 2048,
+    n_mels: int = 256,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+    log_offset: float = 1e-8,
+    center: bool = True,
+    device=None,
+) -> torch.Tensor:
+    """waveform [N] (host) → log-mel [n_frames, n_mels] f32 on `device`
+    (JAX: `log_mel_spectrogram` :166, body `_log_mel_jit` :133).
+
+    Reflect padding (`center`) is done on the host; framing, the Hann
+    window, the f32 matmul DFT, the htk/slaney filterbank and
+    `log(mel + log_offset)` on the device. The JAX package also zero-pads
+    the wave to a multiple of 2048 frames so that song lengths share
+    compiled programs, then trims; the frames it keeps are these, so the
+    port does not pad. Runs on CUDA unless `device` is the CPU."""
+    device = resolve_device(device)
+    wave_np = np.asarray(wave, np.float32)
+    n = len(wave_np)
+    if center:
+        wave_np = reflect_pad_host(wave_np, n_fft // 2)
+        n_frames = n // hop + 1
+    else:
+        n_frames = 1 + max(n - n_fft, 0) // hop
+    target_len = (n_frames - 1) * hop + n_fft
+    wave_np = np.pad(wave_np, (0, max(0, target_len - len(wave_np))))[:target_len]
+
+    window = hann_window(win_length)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    cos_m, sin_m = dft_matrices(n_fft, device)
+    frames = torch.from_numpy(wave_np).to(device).unfold(0, n_fft, hop)
+    frames = frames * torch.from_numpy(window).to(device)
+    power = frame_power_spectrum(frames, cos_m, sin_m)
+    mel = power @ _mel_fb_device(sr, n_fft, n_mels, fmin, fmax, device)
+    return torch.log(mel + log_offset)
+
+
+def wav_to_logmel(wave: np.ndarray, feature_cfg, device=None) -> np.ndarray:
+    """`log_mel_spectrogram` with an `ExtractorFeatureConfig`'s settings,
+    back on the host (JAX: `wav_to_logmel` :249)."""
+    return log_mel_spectrogram(
+        wave, sr=feature_cfg.sr, n_fft=feature_cfg.fft_bins,
+        hop=feature_cfg.hop_sample, win_length=feature_cfg.window_length,
+        n_mels=feature_cfg.mel_bins, log_offset=feature_cfg.log_offset,
+        device=device,
+    ).cpu().numpy()

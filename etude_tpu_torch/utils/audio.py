@@ -1,5 +1,5 @@
-"""Host-side audio I/O (JAX counterpart: etude_tpu/utils/audio.py, the parts
-the Structuralize stage uses).
+"""Host-side audio I/O and the volume map (JAX counterpart:
+etude_tpu/utils/audio.py).
 
 WAV is read and written with scipy.io.wavfile; resampling is scipy's
 polyphase `resample_poly` in f32 (the JAX package evaluates the same filter
@@ -9,6 +9,7 @@ it is installed.
 
 from __future__ import annotations
 
+import json
 import shutil
 import subprocess
 from pathlib import Path
@@ -78,3 +79,39 @@ def decode_audio(path: Union[str, Path], target_sr: Optional[int] = None,
     if not mono:
         wave = wave.reshape(-1, 2)
     return wave, sr
+
+
+def analyze_volume(audio_path: Union[str, Path], sr: int = 22050, resolution: int = 20,
+                   wave_sr: Optional[Tuple[np.ndarray, int]] = None) -> np.ndarray:
+    """Normalized [0, 1] RMS loudness contour at `resolution` Hz (JAX:
+    `analyze_volume` :159).
+
+    Frames of 2 hops, centered with zero padding, as the reference's librosa
+    RMS call; the sums of squares come from one cumulative sum.
+    `wave_sr=(wave, native_sr)` reuses a waveform already decoded (the
+    pipeline decodes origin.wav once), resampled as decoding would."""
+    if wave_sr is not None:
+        wave, native_sr = wave_sr
+        wave = resample_audio(wave, native_sr, sr)
+    else:
+        wave, _ = decode_audio(audio_path, target_sr=sr, mono=True)
+    hop = sr // resolution
+    frame = hop * 2
+    padded = np.pad(wave, frame // 2)
+    n_frames = 1 + (len(padded) - frame) // hop if len(padded) >= frame else 0
+    if n_frames <= 0:
+        return np.zeros(0, np.float32)
+    csum = np.concatenate(([0.0], np.cumsum(padded.astype(np.float64) ** 2)))
+    starts = hop * np.arange(n_frames)
+    rms = np.sqrt((csum[starts + frame] - csum[starts]) / frame)
+    lo, hi = rms.min(), rms.max()
+    if hi > lo:
+        return ((rms - lo) / (hi - lo)).astype(np.float32)
+    return np.zeros_like(rms, dtype=np.float32)
+
+
+def save_volume_map(volume_map: np.ndarray, output_path: Union[str, Path]) -> None:
+    output_path = Path(output_path)
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(output_path, "w", encoding="utf-8") as f:
+        json.dump(np.asarray(volume_map, dtype=float).tolist(), f)

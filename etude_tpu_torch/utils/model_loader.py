@@ -1,6 +1,7 @@
 """Model weights for inference (JAX counterparts:
 etude_tpu/utils/model_loader.py:71 for the decoder, the loading branches of
-data/separation.py:172-187 and data/beat_detector.py:309-340).
+data/extractor.py:162-185, data/separation.py:172-187 and
+data/beat_detector.py:309-340).
 
 The committed checkpoints are orbax directories, which only `jax` + `orbax`
 can read; the port runs where neither is installed. So an orbax checkpoint
@@ -25,11 +26,11 @@ def load_params(what: str, model_path: Union[str, Path, None],
     """A model's parameter tree as numpy arrays: `init_params(0)` when
     `model_path` is missing and random weights are allowed. An existing
     checkpoint raises: orbax cannot be read here, and loading reference
-    `.pth` files is not yet ported."""
+    `.pth`/`.pkl` files is not yet ported."""
     if model_path is not None and Path(model_path).exists():
-        if Path(model_path).suffix in (".pth", ".pt"):
+        if Path(model_path).suffix in (".pth", ".pt", ".pkl"):
             raise NotImplementedError(
-                f"{what}: reference .pth checkpoints ({model_path}) are not "
+                f"{what}: reference torch checkpoints ({model_path}) are not "
                 "yet ported to etude_tpu_torch")
         raise RuntimeError(
             f"{what} checkpoint {model_path} is in a format the port cannot "

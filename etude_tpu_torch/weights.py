@@ -11,6 +11,11 @@ Beat-Transformer and separator (etude_tpu/models/beat_transformer.py:51,
 separator.py:56): matrices [in, out] → [out, in]; conv kernels HWIO →
 PyTorch's OIHW.
 
+hFT transcriber (etude_tpu/models/amt.py:64-130): the `[L]`-stacked
+`enc_layers`, `dec_layers` and `time_layers` are unstacked into per-layer
+modules, matrices [in, out] → [out, in]; the front-end conv and token
+embedding are kept as they are and folded per call, as in the JAX forward.
+
 Each `init_*_params_np` is the port's own numpy copy of the JAX package's
 `init_params` (same tree, same draws in the same order), so full-width
 weights can be made from a seed without JAX.
@@ -23,6 +28,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .models.amt import HFT, AMTConfig
 from .models.beat_transformer import BeatTransformer, BeatTransformerConfig
 from .models.decoder import ATTRIBUTE_ORDER, EtudeDecoder, EtudeDecoderConfig
 from .models.separator import Separator, SeparatorConfig, _stage_channels
@@ -237,4 +243,108 @@ def separator_from_jax(params: ParamTree, config: SeparatorConfig,
         copy(stage["up"], p["up"])
         copy(stage["merge"], p["merge"])
     copy(model.mask_head, params["mask_head"])
+    return model.to(device).eval().requires_grad_(False)
+
+
+def init_amt_params_np(config: AMTConfig, seed: int = 0, std: float = 0.02) -> ParamTree:
+    """The JAX package's hFT `init_params(config, seed, std)` in numpy, f32."""
+    rng = np.random.default_rng(seed)
+    H, P = config.hid_dim, config.pf_dim
+
+    def normal(*shape):
+        return rng.normal(0.0, std, size=shape).astype(np.float32)
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    def attn(n):
+        return {name: {"w": normal(n, H, H), "b": zeros(n, H)} for name in "qkvo"}
+
+    def ff(n):
+        return {"in": {"w": normal(n, H, P), "b": zeros(n, P)},
+                "out": {"w": normal(n, P, H), "b": zeros(n, H)}}
+
+    def ln(n):
+        return {"scale": ones(n, H), "bias": zeros(n, H)}
+
+    def enc_stack(n):
+        return {"attn": attn(n), "ff": ff(n), "ln1": ln(n), "ln2": ln(n)}
+
+    def heads():
+        return {name: {"w": normal(H, 1), "b": zeros(1)} for name in ("onset", "offset", "mpe")
+                } | {"velocity": {"w": normal(H, config.n_velocity), "b": zeros(config.n_velocity)}}
+
+    n_dec = config.decoder_n_layer - 1  # layer zero is separate
+    return {
+        "conv": {"w": normal(config.cnn_channel, config.cnn_kernel),
+                 "b": zeros(config.cnn_channel)},
+        "tok_emb": {"w": normal(config.cnn_dim, H), "b": zeros(H)},
+        "freq_pos_emb": normal(config.n_bin, H),
+        "enc_layers": enc_stack(config.encoder_n_layer),
+        "note_query": normal(config.n_note, H),
+        "dec_zero": {"cross": attn(1), "ff": ff(1), "ln1": ln(1), "ln2": ln(1)},
+        "dec_layers": {"self": attn(n_dec), "cross": attn(n_dec), "ff": ff(n_dec),
+                       "ln1": ln(n_dec), "ln2": ln(n_dec), "ln3": ln(n_dec)},
+        "heads_freq": heads(),
+        "time_pos_emb": normal(config.n_frame, H),
+        "time_layers": enc_stack(config.decoder_n_layer),
+        "heads_time": heads(),
+    }
+
+
+def _layer(tree, l):
+    """Layer `l` of an [L]-stacked subtree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return np.asarray(tree)[l]
+
+
+@torch.no_grad()
+def amt_from_jax(params: ParamTree, config: AMTConfig, device="cpu") -> HFT:
+    """Build the port's hFT transcriber (f32 masters, eval mode) from the
+    JAX tree. `time_pos_emb` may be longer than `config.n_frame` (a
+    checkpoint trained at 512-frame segments run at fewer frames)."""
+    model = HFT(config, n_time_pos=len(params["time_pos_emb"]))
+    model.conv_w.copy_(_t(params["conv"]["w"]))
+    model.conv_b.copy_(_t(params["conv"]["b"]))
+    _copy_linear(model.tok_emb, params["tok_emb"])
+    model.freq_pos_emb.copy_(_t(params["freq_pos_emb"]))
+    model.note_query.copy_(_t(params["note_query"]))
+    model.time_pos_emb.copy_(_t(params["time_pos_emb"]))
+
+    def attention(module, p):
+        for name in "qkvo":
+            _copy_linear(getattr(module, name), p[name])
+
+    def feed_forward(module, p):
+        _copy_linear(module.inp, p["in"])
+        _copy_linear(module.out, p["out"])
+
+    def norms(module, p, names):
+        for ln, name in zip(module.ln, names, strict=True):
+            _copy_ln(ln, p[name])
+
+    for stack, layers in (("enc_layers", model.enc_layers), ("time_layers", model.time_layers)):
+        for l, layer in enumerate(layers):
+            p = _layer(params[stack], l)
+            attention(layer.attn, p["attn"])
+            feed_forward(layer.ff, p["ff"])
+            norms(layer, p, ("ln1", "ln2"))
+    zero = _layer(params["dec_zero"], 0)
+    attention(model.dec_zero.cross, zero["cross"])
+    feed_forward(model.dec_zero.ff, zero["ff"])
+    norms(model.dec_zero, zero, ("ln1", "ln2"))
+    for l, layer in enumerate(model.dec_layers):
+        p = _layer(params["dec_layers"], l)
+        attention(layer.self_attn, p["self"])
+        attention(layer.cross, p["cross"])
+        feed_forward(layer.ff, p["ff"])
+        norms(layer, p, ("ln1", "ln2", "ln3"))
+    for heads, p in ((model.heads_freq, params["heads_freq"]),
+                     (model.heads_time, params["heads_time"])):
+        for name in ("onset", "offset", "mpe", "velocity"):
+            _copy_linear(getattr(heads, name), p[name])
     return model.to(device).eval().requires_grad_(False)

@@ -105,6 +105,12 @@ def test_unported_options_raise(decode_only_env, extra):  # noqa: F811
         infer.main(["--config", str(cfg_yaml), *ARGS, *extra])
 
 
-def test_input_pipeline_not_yet_ported():
+def test_input_pipeline_not_yet_ported(tmp_path):
+    """`--input` runs the whole pipeline (tests/test_torch_pipeline.py); what
+    of it is not yet ported is fetching a URL."""
+    settings = tmp_path / "settings.json"
+    settings.write_text(json.dumps({"paths": {"infer_output_dir": str(tmp_path / "out")}}))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        infer.main(["--input", "song.wav", "--device", "cpu"])
+        infer.main(["--config", str(settings), "--input", "https://example.com/song.mp3",
+                    "--device", "cpu", "--allow-random-weights"])
+    assert not (tmp_path / "out" / "temp" / "origin.wav").exists()
