@@ -49,9 +49,23 @@ Phases, each announced with a flushed line when it starts and ends:
   8. cli            `etude_tpu_torch.infer --decode-only` in-process on the
                     pipeline's work dir cut to its first 30 s of bars, with
                     synthetic condition notes, to a MIDI file that parses
+  9. train          `etude_tpu_torch.train` in-process at the published decoder
+                    widths on dataset_distill/tokenized (500 songs, 1024-token
+                    chunks) with configs/distill.yaml's train settings, 40
+                    steps, `latest` saved every 20, host syncs an error in
+                    the steady steps: dataset load time, median warm step,
+                    tokens/s, peak memory, the step's operations, then a
+                    profiled window (idle share, top operations); checks,
+                    each beside a control it must catch: finite losses and no
+                    skip (a NaN bias must skip), no host sync (an .item()
+                    must raise), learning on one fixed micro-batch (lr 0
+                    changes nothing), one step on the card against the CPU
+                    (labels shifted by one), a resume across an epoch within
+                    the card's run-to-run spread (Adam moments zeroed), and
+                    `--decode-only` serving the run's own export
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline and cli runs, each counted from 0, then
+serving, structuralize, pipeline, cli and train runs, each counted from 0, then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
 CUDA, and a directory that holds this script without the package. It
@@ -93,6 +107,27 @@ SEP_DB_ATOL = 0.1
 HFT_ATOL = 6e-3
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
+TRAIN_STEPS, TRAIN_SAVE_EVERY = 40, 20
+# 30 steps of the published decoder on one fixed micro-batch of 8 corpus
+# chunks (peak rate 2e-4 after 3 warmup steps) must lower its loss by this
+# fraction (4.68 -> 1.62, 65%, on an H100); at rate 0 the loss and every
+# parameter must stay as they were.
+LEARN_STEPS, LEARN_DROP = 30, 0.5
+# One optimizer step (the second of a run, the first at rate > 0) of the
+# published decoder on 2 corpus rows, card bf16 against the port's CPU f32:
+# relative limits on the losses and gradient norms, on the first Adam moment
+# (0.1 x the gradient after one step) and on the parameter update (Adam's
+# first updates are nearly sign(g) x rate, so entries with tiny gradients
+# flip with bf16 rounding). Measured on an H100: 2.6e-4, 1.9e-5, 6.7e-3,
+# 0.093; with the labels shifted by one position: 1.1e-2, 0.13, 0.63, 1.03,
+# each of which must exceed its limit.
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_MOMENT_RTOL, STEP_UPDATE_RTOL = 2e-3, 1e-3, 0.03, 0.3
+# A resumed run's losses against two straight runs', on the same batches:
+# its largest gap over the run to the nearer of them at most this multiple
+# of the straight runs' own largest gap, plus 8 f32 ulps of the loss (for a
+# card that happens to be deterministic). The card is not: two straight
+# runs of 42 steps part by 1.4e-4 to 3.3e-4 in a loss of 3.0 on an H100.
+RESUME_SPREAD_FACTOR = 3.0
 
 
 def say(msg: str) -> None:
@@ -814,6 +849,368 @@ def cli_work_dir(root: Path, src: Path, seconds: float) -> Path:
     return pipeline_settings(root, ROOT)
 
 
+def train_settings(root: Path, tokenized: Path) -> Path:
+    """configs/distill.yaml's train settings as .json (PyYAML is not
+    promised on the card's machine): 30 epochs, batch 8 x accumulation 4,
+    peak rate 2e-4 after 2 warmup epochs, 1024-token chunks; the decoder at
+    the published widths (the settings' defaults, which
+    checkpoints/decoder/etude_decoder_config.json holds)."""
+    root.mkdir(parents=True, exist_ok=True)
+    settings = root / "distill.json"
+    settings.write_text(json.dumps({
+        "paths": {"dataset_vocab": str(ROOT / "dataset_distill/vocab.json"),
+                  "tokenized_dir": str(tokenized),
+                  "train_output_dir": str(root / "out")},
+        "train": {"num_epochs": 30, "batch_size": 8, "gradient_accumulation_steps": 4,
+                  "learning_rate": 2.0e-4, "warmup_epochs": 2},
+    }))
+    return settings
+
+
+def train_operations(config, rows: int, T: int):
+    """(bf16, f32) operations of one optimizer step over `rows` chunks of T
+    positions: 6 per parameter of the matmuls per position (forward 2,
+    backward 4), and attention over the full T (QK^T and PV, 2 T hidden
+    multiply-adds per position and layer forward, 3x with the backward);
+    the port's QK^T runs as an f32 GEMM of bf16-rounded values."""
+    H, L, I, V = (config.hidden_size, config.num_hidden_layers,
+                  config.intermediate_size, config.vocab_size)
+    matmul = L * (3 * H * H + H * H + 2 * H * I) + H * V + 4 * config.attribute_emb_dim * H
+    positions = rows * T
+    attention = 3 * 2 * 2 * T * H * L * positions
+    return 6 * matmul * positions + attention // 2, attention // 2
+
+
+def corpus_subset(root: Path, min_steps: int, global_batch: int):
+    """The first corpus songs, copied until one epoch holds `min_steps`
+    optimizer steps at 1024-token chunks; returns (dir, dataset, steps per
+    epoch)."""
+    import shutil
+
+    from etude_tpu_torch.data.dataset import EtudeDataset
+    from etude_tpu_torch.data.vocab import Vocab
+
+    vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
+    out = root / "tokenized"
+    for song in sorted((ROOT / "dataset_distill/tokenized").iterdir()):
+        shutil.copytree(song, out / song.name)
+        dataset = EtudeDataset(out, vocab, max_seq_len=1024)
+        if len(dataset) // global_batch >= min_steps:
+            return out, dataset, len(dataset) // global_batch
+    raise RuntimeError("the corpus is too small for the resume check")
+
+
+def fresh_training(config, device, dtype, lr=2e-4, warmup=3, total=1000):
+    """A train state of the decoder from seed 0 on `device`, and its step."""
+    from etude_tpu_torch.parallel.train_step import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+    from etude_tpu_torch.weights import decoder_from_jax, init_decoder_params_np
+
+    model = decoder_from_jax(init_decoder_params_np(config, seed=0), config, device)
+    tx, _ = make_optimizer(learning_rate=lr, warmup_steps=warmup, total_steps=total)
+    state = init_train_state(model, tx)
+    return state, make_train_step(config, tx, compute_dtype=dtype)
+
+
+def device_batch(host, accum, device, rows=None):
+    """The first `rows` rows of a host batch as [accum, rows/accum, T]
+    tensors on `device`."""
+    import torch
+    from etude_tpu_torch.parallel.train_step import reshape_for_accum
+
+    host = {k: v[:rows] for k, v in host.items()} if rows else host
+    return {k: torch.from_numpy(v).to(device) for k, v in reshape_for_accum(host, accum).items()}
+
+
+def train_main_run(root: Path):
+    """The CLI at full width on the whole corpus: 40 steps, `latest` every
+    20, with --strict-sync."""
+    import math
+
+    import torch
+    from etude_tpu_torch import train
+
+    settings = train_settings(root, ROOT / "dataset_distill/tokenized")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = train.run(["--config", str(settings), "--run-id", "main", "--max-steps",
+                     str(TRAIN_STEPS), "--save-every-steps", str(TRAIN_SAVE_EVERY),
+                     "--strict-sync"])
+    wall = time.perf_counter() - t
+    if run is None:
+        raise RuntimeError("etude_tpu_torch.train failed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = [json.loads(x) for x in (run.ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+    warm = run.step_seconds[1:]
+    median = statistics.median(warm)
+    steps = len(run.losses)
+    rows, T = 32, 1024
+    say(f"  dataset: 500 songs loaded in {run.load_seconds:.2f} s; run wall {wall:.2f} s "
+        f"(load, init, {steps} steps, 3 saves, export)")
+    say(f"  optimizer step (32 x 1024 positions, 4 micro-batches): first "
+        f"{1e3 * run.step_seconds[0]:.2f} ms, warm median {1e3 * median:.3f} ms "
+        f"(min {1e3 * min(warm):.3f}, max {1e3 * max(warm):.3f}) over {len(warm)} steps "
+        f"(CUDA events between steps)")
+    say(f"  tokens/s at the warm median: {rows * T / median:,.0f} positions, "
+        f"{run.label_tokens / steps / median:,.0f} label tokens ({run.label_tokens / steps:.1f} "
+        f"per step); metrics.jsonl tokens_per_sec {metrics[-1]['tokens_per_sec']:,.0f} "
+        f"(its epoch wall, first step and saves included)")
+    say(f"  peak device memory {peak:.2f} GiB; losses {run.losses[0]:.4f} -> "
+        f"{run.losses[-1]:.4f}; metrics.jsonl {metrics[-1]}")
+    if steps != TRAIN_STEPS or metrics[-1]["step"] != TRAIN_STEPS:
+        raise RuntimeError(f"the run took {steps} steps, expected {TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in run.losses) or metrics[-1]["skipped_updates"]:
+        raise RuntimeError(f"non-finite loss or skipped update: {metrics[-1]}")
+    return run, median
+
+
+def train_profile(config, batches, median_s):
+    """Where a step's time goes: 5 warm steps of the CLI's step function on
+    corpus batches, unprofiled, then the same 5 under torch.profiler; the
+    device time per step against the CLI's warm median gives the CLI's idle
+    share too."""
+    import torch
+
+    state, step = fresh_training(config, "cuda", torch.bfloat16)
+    for b in batches[:2]:
+        step(state, b)
+
+    def window():
+        for b in batches:
+            step(state, b)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = len(batches)
+    say(f"  profiled window: {n} steps, unprofiled wall {1e3 * wall:.2f} ms "
+        f"({1e3 * wall / n:.2f} ms per step; the CLI's warm median {1e3 * median_s:.2f} ms)")
+    busy = profile_device(window, wall)
+    if busy is not None:
+        say(f"  device time per step {busy / n:.2f} ms -> idle share of the CLI's warm step "
+            f"{1 - busy / n / (1e3 * median_s):.3f}")
+
+
+def train_learning(config, host):
+    """30 steps on one fixed micro-batch lower its loss; at rate 0 nothing
+    moves."""
+    import torch
+
+    batch = device_batch(host, 1, "cuda", rows=8)
+    runs = {}
+    for lr in (2e-4, 0.0):
+        state, step = fresh_training(config, "cuda", torch.bfloat16, lr=lr, total=LEARN_STEPS)
+        before = [p.detach().clone() for p in state.params()]
+        losses = [step(state, batch)["loss"] for _ in range(LEARN_STEPS)]
+        losses = [float(x) for x in losses]
+        same = all(torch.equal(a, b) for a, b in zip(before, state.params()))
+        runs[lr] = (losses, same)
+        del state, step
+    (learn, _), (still, same) = runs[2e-4], runs[0.0]
+    say(f"  learning, one fixed micro-batch of 8 x 1024: loss {learn[0]:.4f} -> {learn[-1]:.4f} "
+        f"in {LEARN_STEPS} steps (must fall by {LEARN_DROP:.0%}); control at rate 0: "
+        f"{still[0]:.6f} -> {still[-1]:.6f}, parameters unchanged: {same}")
+    if not learn[-1] <= (1 - LEARN_DROP) * learn[0]:
+        raise RuntimeError(f"the loss fell from {learn[0]:.4f} to {learn[-1]:.4f} only")
+    if not same or max(still) != min(still):
+        raise RuntimeError("at rate 0 the parameters or the loss moved")
+
+
+def train_parity(config, host):
+    """One optimizer step of the published decoder on 2 corpus rows, card
+    bf16 against the port's CPU f32, beside a control with the labels
+    shifted by one position; then a NaN in a bias must skip the update on
+    the card."""
+    import numpy as np
+    import torch
+
+    def two_steps(device, dtype, labels_shift=0):
+        rows = {k: v[:2] for k, v in host.items()}
+        rows["labels"] = np.roll(rows["labels"], labels_shift, axis=-1)
+        batch = device_batch(rows, 1, device)
+        state, step = fresh_training(config, device, dtype, warmup=1)
+        start = [p.detach().clone() for p in state.params()]
+        metrics = [step(state, batch) for _ in range(2)]  # rates 0, then 2e-4
+        out = {
+            "loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics],
+            "update": torch.cat([(p.detach() - s).flatten().float().cpu()
+                                 for p, s in zip(state.params(), start)]),
+            "mu": torch.cat([m.flatten().cpu() for m in state.opt_state.mu]),
+        }
+        return out, state, step, batch
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    ref = two_steps("cpu", torch.float32)[0]
+    card, state, step, batch = two_steps("cuda", torch.bfloat16)
+    shifted = two_steps("cuda", torch.bfloat16, labels_shift=1)[0]
+
+    def gaps(x):
+        return (max(abs(a / b - 1) for a, b in zip(x["loss"], ref["loss"])),
+                max(abs(a / b - 1) for a, b in zip(x["grad_norm"], ref["grad_norm"])),
+                rel(x["mu"], ref["mu"]), rel(x["update"], ref["update"]))
+
+    limits = (STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_MOMENT_RTOL, STEP_UPDATE_RTOL)
+    got, control = gaps(card), gaps(shifted)
+    say(f"  one step (2 x 1024), CPU f32 then card bf16: losses {ref['loss']}, {card['loss']}; "
+        f"grad norms {ref['grad_norm']}, {card['grad_norm']}")
+    say("  relative gaps (loss, grad norm, first moment, update): "
+        + ", ".join(f"{g:.3g}" for g in got) + " (limits "
+        + ", ".join(f"{x:g}" for x in limits) + "); control, labels shifted by one: "
+        + ", ".join(f"{g:.3g}" for g in control))
+    if any(g > x for g, x in zip(got, limits)):
+        raise RuntimeError("the card's step differs from the CPU's beyond the limits")
+    if any(g <= x for g, x in zip(control, limits)):
+        raise RuntimeError("the step check missed its control (labels shifted by one)")
+
+    # A NaN in the attribute-projection bias: every gradient non-finite,
+    # the update skipped on the device.
+    with torch.no_grad():
+        state.model.attr_proj.bias[0] = float("nan")
+    before = [p.detach().clone() for p in state.params()]
+    moments = [m.clone() for m in state.opt_state.mu + state.opt_state.nu]
+    count = int(state.opt_state.count)
+    m = step(state, batch)
+    kept = (all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip(before, state.params()))
+            and all(torch.equal(a, b) for a, b in
+                    zip(moments, state.opt_state.mu + state.opt_state.nu)))
+    say(f"  NaN bias: grads_finite {int(m['grads_finite'])}, skipped {int(state.skipped)}, "
+        f"step {int(state.step)}, count {int(state.opt_state.count)} (was {count}), "
+        f"parameters and moments kept: {kept}")
+    if int(m["grads_finite"]) or int(state.skipped) != 1 or not kept \
+            or int(state.opt_state.count) != count:
+        raise RuntimeError("a non-finite gradient did not skip the update on the card")
+
+
+def train_resume(root: Path, subset: Path, k: int):
+    """A run resumed at an epoch's end against two straight runs: on the
+    same batches (a resume restarts its epoch, so the check resumes at one's
+    end), its losses must stay within the straight runs' own spread; the
+    control resumes from a copy of the checkpoint with the Adam moments
+    zeroed. Returns the first straight run's directory."""
+    import shutil
+
+    import numpy as np
+    from etude_tpu_torch import train
+
+    settings = train_settings(root, subset)
+    out = root / "out"
+
+    def run(run_id, steps, *extra):
+        r = train.run(["--config", str(settings), "--run-id", run_id,
+                       "--max-steps", str(steps), *extra])
+        if r is None:
+            raise RuntimeError(f"resume check: run {run_id} failed")
+        return r.losses
+
+    s1, s2 = run("s1", 2 * k), run("s2", 2 * k)
+    head = run("r", k)
+    shutil.copytree(out / "r", out / "bad")
+    opt = out / "bad" / "latest" / "opt_state.npz"
+    with np.load(opt) as f:
+        zeroed = {key: (np.zeros_like(f[key]) if key.startswith(("mu/", "nu/")) else f[key])
+                  for key in f.files}
+    np.savez(opt, **zeroed)
+    resumed = head + run("r", 2 * k, "--resume", str(out / "r"))
+    bad = head + run("bad", 2 * k, "--resume", str(out / "bad"))
+
+    def gap(a, b):
+        return max(abs(x - y) for x, y in zip(a, b, strict=True))
+
+    spread = gap(s1, s2)
+    got = min(gap(resumed, s1), gap(resumed, s2))
+    control = min(gap(bad, s1), gap(bad, s2))
+    limit = RESUME_SPREAD_FACTOR * spread + 8 * float(np.spacing(np.float32(max(s1))))
+    say(f"  resume: {k} steps per epoch on {len(list(subset.iterdir()))} songs; step {2 * k} "
+        f"loss straight {s1[-1]:.6f} / {s2[-1]:.6f}, resumed {resumed[-1]:.6f}; largest gap "
+        f"over {2 * k} steps: straight vs straight {spread:.3g}, resumed vs the nearer "
+        f"straight run {got:.3g} (limit {limit:.3g}); control, moments zeroed: {control:.3g}")
+    if got > limit:
+        raise RuntimeError(f"the resumed run left the straight runs' spread ({got:.3g} > {limit:.3g})")
+    if control <= limit:
+        raise RuntimeError(f"the resume check missed its control ({control:.3g})")
+    return out / "s1"
+
+
+def train_serve(run_dir: Path, cli_root: Path, name: str) -> int:
+    """`--decode-only` on the cli phase's work dir from a run's own export,
+    with no random-weight flag, to `name`.mid; returns the K1 launches."""
+    from etude_tpu_torch import infer
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    settings = cli_root / f"{name}.json"
+    settings.write_text(json.dumps({
+        "paths": {"infer_output_dir": str(cli_root / "outputs" / "infer"),
+                  "decoder_model": str(run_dir / "model"),
+                  "decoder_config": str(run_dir / "etude_decoder_config.json"),
+                  "decoder_vocab": str(run_dir / "vocab.json")},
+        "decoder": {"max_bar_token_limit": 32},
+    }))
+    decode_attention.launches = 0
+    rc = infer.main(["--config", str(settings), "--decode-only", "--output_name", name,
+                     "--seed", "7"])
+    launches = decode_attention.launches
+    out = cli_root / "outputs" / "infer" / f"{name}.mid"
+    if rc != 0 or not out.exists():
+        raise RuntimeError(f"infer from the trained export exited {rc}; {out} exists: "
+                           f"{out.exists()}")
+    notes = read_midi_notes(out)
+    say(f"  served from {run_dir / 'model'}: {out.name} {out.stat().st_size} bytes, "
+        f"{len(notes)} notes; K1 launches {launches}")
+    if launches == 0 or launches % 8:
+        raise RuntimeError(f"decode_attention launched {launches} times, not 8 per S=1 chunk")
+    return launches
+
+
+def train_phase(root: Path, cli_root: Path) -> int:
+    """The train phase; returns the K1 launches of serving the exports: the
+    main run's (40 steps, its rate still below 2.2e-6 in its warmup) and
+    the resume check's first straight run's (42 steps on 7 songs, warmed up
+    to 2e-4)."""
+    import itertools
+
+    import torch
+    from etude_tpu_torch.models.decoder import EtudeDecoderConfig
+
+    run, median = train_main_run(root / "main")
+    config = EtudeDecoderConfig.from_json_file(run.ckpt_dir / "etude_decoder_config.json")
+    bf16, f32 = train_operations(config, 32, 1024)
+    say(f"  step operations: {bf16 / 1e12:.3f} TFLOP at bf16 + {f32 / 1e12:.3f} TFLOP of f32 "
+        f"QK^T = {(bf16 + f32) / 1e12:.3f} TFLOP -> {1e3 * (bf16 + f32) / BF16_PEAK:.2f} ms all "
+        f"at the bf16 peak, {1e3 * (bf16 / BF16_PEAK + f32 / F32_PEAK):.2f} ms with the f32 "
+        f"share at the f32 peak; the warm median is {1e3 * median:.2f} ms")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.zeros(1, device="cuda").item()
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    say(f"  control of --strict-sync: an .item() under the same mode raised: {caught}")
+    if not caught:
+        raise RuntimeError("set_sync_debug_mode('error') did not catch an .item()")
+
+    subset, dataset, k = corpus_subset(root / "subset", 20, 32)
+    host = list(itertools.islice(dataset.batches(32, shuffle=True, seed=1234), 5))
+    batches = [device_batch(h, 4, "cuda") for h in host]
+    train_profile(config, batches, median)
+    del batches
+    train_learning(config, host[0])
+    train_parity(config, host[0])
+    torch.cuda.empty_cache()
+    trained = train_resume(root / "resume", subset, k)
+    return (train_serve(run.ckpt_dir, cli_root, "trained")
+            + train_serve(trained, cli_root, "trained_subset"))
+
+
 def main() -> int:
     import torch
 
@@ -949,6 +1346,9 @@ def main() -> int:
             notes = read_midi_notes(out)
             say(f"  {out.name}: {out.stat().st_size} bytes, {len(notes)} notes; K1 launches "
                 f"{decode_attention.launches}")
+
+        with phase("train"):
+            launches += train_phase(tmp / "train", tmp / "cli")
 
     main_row = rows[len(shapes) - 1]
     say(json.dumps({"kernels": [{

@@ -1,10 +1,11 @@
-"""Settings of the ported paths (Extract, Structuralize, Decode), as plain
-dataclasses.
+"""Settings of the ported paths (Extract, Structuralize, Decode, decoder
+training), as plain dataclasses.
 
 Copied from the JAX package's pydantic schema (etude_tpu/config/schema.py:
-the model paths :46-53, ExtractorConfig :71-125 with its five sections,
-BeatDetectorConfig :140 with its model config,
-SeparatorConfig :154 and the DecoderConfig generation fields :196-216),
+EnvConfig's seed and compute dtype :19-25, MeshConfig :28-42, the paths
+:46-65, ExtractorConfig :71-125 with its five sections,
+BeatDetectorConfig :140 with its model config, SeparatorConfig :154,
+DecoderConfig :196-216 and TrainConfig :234-273),
 without pydantic: the port runs where neither pydantic nor PyYAML is
 installed. A settings file is read only when the caller names one: a `.json`
 file with the json module, anything else as YAML, which then needs PyYAML.
@@ -19,6 +20,26 @@ from typing import Any, Dict, List, Optional, Union
 
 
 @dataclasses.dataclass
+class EnvConfig:
+    seed: int = 1234
+    # bf16 compute for the model matmuls; f32 masters either way.
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Read for the JAX package's settings files; the port trains on one
+    device (`train.check_single_device` raises on anything else)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1 = all available devices on the data axis.
+    data_parallel: int = -1
+    model_parallel: int = 1
+    fsdp: bool = False
+
+
+@dataclasses.dataclass
 class PathConfig:
     extractor_model: Path = Path("checkpoints/extractor/latest.ckpt")
     beat_detector_model: Path = Path("checkpoints/beat_detector/latest.ckpt")
@@ -26,6 +47,9 @@ class PathConfig:
     decoder_model: Path = Path("checkpoints/decoder/latest.ckpt")
     decoder_config: Path = Path("checkpoints/decoder/etude_decoder_config.json")
     decoder_vocab: Path = Path("checkpoints/decoder/vocab.json")
+    tokenized_dir: Path = Path("dataset/tokenized")
+    dataset_vocab: Path = Path("dataset/vocab.json")
+    train_output_dir: Path = Path("outputs/train")
     infer_output_dir: Path = Path("outputs/infer")
 
 
@@ -139,6 +163,19 @@ class SeparatorConfig:
 
 @dataclasses.dataclass
 class DecoderConfig:
+    hidden_size: int = 512
+    num_hidden_layers: int = 8
+    num_attention_heads: int = 8
+    intermediate_size: int = 2048
+    max_position_embeddings: int = 1024
+
+    num_classes: int = 3
+    num_attribute_bins: int = 3
+    attribute_emb_dim: int = 64
+    pad_class_id: int = 0
+    attribute_pad_id: int = 0
+    context_num_past_xy_pairs: int = 4
+
     temperature: float = 0.0
     top_p: float = 0.9
     max_output_tokens: int = 25600
@@ -146,13 +183,50 @@ class DecoderConfig:
 
 
 @dataclasses.dataclass
+class TrainConfig:
+    run_id: str = ""
+    resume_from_checkpoint: Optional[str] = None
+
+    data_format: str = "npy"
+    num_workers: int = 4
+
+    batch_size: int = 8
+    learning_rate: float = 2e-4
+    weight_decay: float = 0.01
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.98
+    num_epochs: int = 200
+    # Fractional values are allowed (warmup_steps = steps_per_epoch * this).
+    warmup_epochs: float = 10.0
+    gradient_accumulation_steps: int = 4
+    clip_grad_norm: float = 1.0
+    scheduler: str = "cosine_with_warmup"
+    max_seq_len: int = 1024
+
+    save_every_n_epochs: int = 10
+
+    # DAgger history from NNNN_hist.npy rollouts (data/dataset.py), used
+    # for a chunk with probability dagger_history_prob.
+    dagger_history: bool = False
+    dagger_history_prob: float = 1.0
+    # Probability of replacing a chunk's attribute bins by the neutral bin.
+    attr_dropout: float = 0.0
+    # Warm-start params from a params-only export (fresh optimizer and
+    # schedule, unlike resume_from_checkpoint, which restores both).
+    init_from: Optional[Path] = None
+
+
+@dataclasses.dataclass
 class EtudeConfig:
+    env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     paths: PathConfig = dataclasses.field(default_factory=PathConfig)
     extractor: ExtractorConfig = dataclasses.field(default_factory=ExtractorConfig)
     beat_detector: BeatDetectorConfig = dataclasses.field(
         default_factory=BeatDetectorConfig)
     separator: SeparatorConfig = dataclasses.field(default_factory=SeparatorConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def _read_settings(path: Path) -> Dict[str, Any]:
@@ -169,6 +243,9 @@ def _read_settings(path: Path) -> Dict[str, Any]:
     return yaml.safe_load(text) or {}
 
 
+_SCALARS = {"int": int, "float": float, "str": str, "bool": bool}
+
+
 def _apply(section, values: Dict[str, Any], where: str):
     fields = {f.name: f for f in dataclasses.fields(section)}
     for key, value in values.items():
@@ -179,12 +256,17 @@ def _apply(section, values: Dict[str, Any], where: str):
             if not isinstance(value, dict):
                 raise ValueError(f"{where}{key} must be a mapping")
             _apply(current, value, f"{where}{key}.")
-        elif isinstance(current, Path):
-            setattr(section, key, Path(value))
+        elif "Path" in str(fields[key].type):
+            setattr(section, key, None if value is None else Path(value))
+        elif current is None or value is None:
+            setattr(section, key, value)  # an Optional field
         elif isinstance(current, list):
             setattr(section, key, [type(current[0])(v) for v in value])
         else:
-            setattr(section, key, type(current)(value))
+            # The declared type, not the default's (a float field may have an
+            # int default).
+            cast = _SCALARS.get(str(fields[key].type), type(current))
+            setattr(section, key, cast(value))
 
 
 def load_config(path: Optional[Union[str, Path]] = None,

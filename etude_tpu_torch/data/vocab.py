@@ -101,6 +101,17 @@ class Vocab:
         return [self.decode_to_event(i) for i in id_sequence if i != pad]
 
     # ---- persistence ---------------------------------------------------
+    def save(self, filepath: Union[str, Path]) -> None:
+        filepath = Path(filepath)
+        filepath.parent.mkdir(parents=True, exist_ok=True)
+        with open(filepath, "w", encoding="utf-8") as f:
+            json.dump(
+                {"token_to_id": self.token_to_id, "special_tokens": self.special_tokens},
+                f,
+                ensure_ascii=False,
+                indent=2,
+            )
+
     @classmethod
     def load(cls, filepath: Union[str, Path]) -> "Vocab":
         filepath = Path(filepath)

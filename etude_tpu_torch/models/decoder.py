@@ -7,12 +7,15 @@ rotary embeddings on the first `rotary_pct` of each head, exact GELU); an
 untied f32 LM head. The numerics follow the JAX package: LayerNorm in f32
 with f32 parameters, matmuls in the compute dtype (bf16 by default), rotary
 in f32, and the QKV projection split per head as [q_h | k_h | v_h]
-(reshape to [B, T, H, 3D], then split).
+(reshape to [B, T, H, 3D], then split). The embeddings have no
+`padding_idx`: the JAX package trains the pad rows too (they are zero only
+at init).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # Attribute order is part of the data contract (concatenation order of the
 # attribute embeddings before projection).
@@ -57,6 +61,12 @@ class EtudeDecoderConfig:
     def rotary_dim(self) -> int:
         return int(self.head_dim * self.rotary_pct)
 
+    def to_json_file(self, path: Union[str, Path]) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
     @classmethod
     def from_json_file(cls, path: Union[str, Path]) -> "EtudeDecoderConfig":
         with open(path, "r", encoding="utf-8") as f:
@@ -85,6 +95,13 @@ def rotary_tables(config: EtudeDecoderConfig,
     emb = np.concatenate([freqs, freqs], axis=-1)
     return (torch.from_numpy(np.cos(emb)).to(device),
             torch.from_numpy(np.sin(emb)).to(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _device_rotary_tables(config: EtudeDecoderConfig, device: torch.device):
+    """`rotary_tables` made once per device: a training step must not copy
+    from the host, which would synchronize it with the card."""
+    return rotary_tables(config, device)
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -198,13 +215,18 @@ class EtudeDecoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, class_ids: torch.Tensor,
                 attr_ids: Dict[str, torch.Tensor],
                 attention_mask: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        """Causal forward over [B, T] tokens → f32 logits [B, T, vocab]."""
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> torch.Tensor:
+        """Causal forward over [B, T] tokens → f32 logits [B, T, vocab]
+        (JAX `forward` :223). `remat` recomputes each layer in the backward
+        pass (`torch.utils.checkpoint`) instead of keeping its activations,
+        as the JAX `jax.checkpoint` per layer does: the same loss and
+        gradients for a second forward's operations."""
         config = self.config
         B, T = input_ids.shape
         device = input_ids.device
         h = self.embed_inputs(input_ids, class_ids, attr_ids, compute_dtype)
-        cos_t, sin_t = rotary_tables(config, device)
+        cos_t, sin_t = _device_rotary_tables(config, device)
         cos, sin = cos_t[:T], sin_t[:T]
 
         mask = torch.ones((T, T), dtype=torch.bool, device=device).tril()[None, None]
@@ -214,6 +236,9 @@ class EtudeDecoder(nn.Module):
         norm = float(np.sqrt(config.head_dim))
 
         def attend(q, k, v):
+            # QK^T as an f32 GEMM of bf16-rounded values keeps the JAX
+            # rounding (bf16 products, f32 sums); on the card, with TF32 off,
+            # it runs on the FMA units, not the tensor cores (PERF.md §5).
             scores = torch.einsum(
                 "bqhd,bkhd->bhqk",
                 q.to(compute_dtype).float(), k.to(compute_dtype).float(),
@@ -222,6 +247,38 @@ class EtudeDecoder(nn.Module):
             return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
         for layer in self.layers:
-            h = layer_step(layer, layer.cast(compute_dtype), h, cos, sin,
-                           config, attend)
+            def run(h, layer=layer):
+                return layer_step(layer, layer.cast(compute_dtype), h, cos, sin,
+                                  config, attend)
+            h = checkpoint(run, h, use_reentrant=False) if remat else run(h)
         return self.head(h)
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def loss_fn(model: EtudeDecoder, batch: Dict[str, torch.Tensor],
+            compute_dtype: torch.dtype = torch.bfloat16,
+            remat: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean cross-entropy over labels != -100 from f32 logits (JAX
+    `loss_fn` :300), with the label count and the accuracy. Batch keys:
+    input_ids, class_ids, labels, attention_mask and {name}_bin_ids for each
+    attribute."""
+    attr_ids = {name: batch[f"{name}_bin_ids"] for name in ATTRIBUTE_ORDER}
+    logits = model(batch["input_ids"], batch["class_ids"], attr_ids,
+                   attention_mask=batch.get("attention_mask"),
+                   compute_dtype=compute_dtype, remat=remat)
+    labels = batch["labels"].long()
+    valid = labels != -100
+    safe_labels = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    token_ll = logp.gather(-1, safe_labels[..., None])[..., 0]
+    n_valid = valid.sum().clamp(min=1)
+    loss = -(token_ll * valid).sum() / n_valid
+    metrics = {
+        "loss": loss,
+        "n_tokens": n_valid,
+        "accuracy": ((logits.argmax(-1) == labels) & valid).sum() / n_valid,
+    }
+    return loss, metrics

@@ -5,7 +5,9 @@ Decoder: the JAX tree (etude_tpu/models/decoder.py:83-141) stacks the layers
 along a leading [L] axis, stores matrices as [in, out] and keeps an untied
 `lm_head` [hidden, vocab]. `decoder_from_jax` unstacks and transposes into
 PyTorch's [out, in] `nn.Linear` weights, so both packages compute the same
-function.
+function; `decoder_to_jax` is its exact inverse. Both go through one table
+of leaves (`_decoder_leaves`), which also carries the Adam moments of a
+training checkpoint into the same tree.
 
 Beat-Transformer and separator (etude_tpu/models/beat_transformer.py:51,
 separator.py:56): matrices [in, out] → [out, in]; conv kernels HWIO →
@@ -84,32 +86,81 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
+def _decoder_leaves(config: EtudeDecoderConfig):
+    """(PyTorch name, JAX tree path, layer index or None, transposed) for
+    every parameter of the decoder."""
+    leaves = [("word_emb.weight", ("word_emb",), None, False),
+              ("class_emb.weight", ("class_emb",), None, False)]
+    leaves += [(f"attr_emb.{name}.weight", ("attr_emb", name), None, False)
+               for name in ATTRIBUTE_ORDER]
+    leaves += [("attr_proj.weight", ("attr_proj", "w"), None, True),
+               ("attr_proj.bias", ("attr_proj", "b"), None, False)]
+    for l in range(config.num_hidden_layers):
+        for ln in ("ln1", "ln2"):
+            leaves += [(f"layers.{l}.{ln}.weight", ("layers", ln, "scale"), l, False),
+                       (f"layers.{l}.{ln}.bias", ("layers", ln, "bias"), l, False)]
+        for lin in ("qkv", "attn_out", "mlp_in", "mlp_out"):
+            leaves += [(f"layers.{l}.{lin}.weight", ("layers", lin, "w"), l, True),
+                       (f"layers.{l}.{lin}.bias", ("layers", lin, "b"), l, False)]
+    leaves += [("final_ln.weight", ("final_ln", "scale"), None, False),
+               ("final_ln.bias", ("final_ln", "bias"), None, False),
+               ("lm_head.weight", ("lm_head",), None, True)]
+    return leaves
+
+
+def decoder_state_from_jax(params: ParamTree,
+                           config: EtudeDecoderConfig) -> Dict[str, torch.Tensor]:
+    """The JAX tree (leaves: numpy arrays or anything `np.asarray` reads) as
+    f32 CPU tensors under the decoder's PyTorch names."""
+    state = {}
+    for name, path, layer, transposed in _decoder_leaves(config):
+        a = params
+        for key in path:
+            a = a[key]
+        t = _t(a if layer is None else np.asarray(a)[layer])
+        state[name] = t.T.contiguous() if transposed else t
+    return state
+
+
+def decoder_state_to_jax(state: Dict[str, torch.Tensor],
+                         config: EtudeDecoderConfig) -> ParamTree:
+    """Tensors under the decoder's PyTorch names (parameters, or anything
+    shaped like them) → the JAX tree as numpy arrays; the inverse of
+    `decoder_state_from_jax`."""
+    tree: ParamTree = {}
+    stacks: Dict[tuple, list] = {}
+    for name, path, layer, transposed in _decoder_leaves(config):
+        t = state[name].detach()
+        a = (t.T if transposed else t).cpu().numpy().copy()
+        if layer is not None:
+            stacks.setdefault(path, []).append(a)
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+    for path, arrays in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrays)
+    return tree
+
+
 @torch.no_grad()
 def decoder_from_jax(params: ParamTree, config: EtudeDecoderConfig,
                      device="cpu") -> EtudeDecoder:
     """Build the port's decoder (f32 masters, eval mode) from the JAX tree.
     Leaves may be numpy arrays or anything `np.asarray` reads."""
     model = EtudeDecoder(config)
-    model.word_emb.weight.copy_(_t(params["word_emb"]))
-    model.class_emb.weight.copy_(_t(params["class_emb"]))
-    for name in ATTRIBUTE_ORDER:
-        model.attr_emb[name].weight.copy_(_t(params["attr_emb"][name]))
-    model.attr_proj.weight.copy_(_t(params["attr_proj"]["w"]).T)
-    model.attr_proj.bias.copy_(_t(params["attr_proj"]["b"]))
-
-    stacked = params["layers"]
-    for l, layer in enumerate(model.layers):
-        for ln in ("ln1", "ln2"):
-            getattr(layer, ln).weight.copy_(_t(stacked[ln]["scale"][l]))
-            getattr(layer, ln).bias.copy_(_t(stacked[ln]["bias"][l]))
-        for lin in ("qkv", "attn_out", "mlp_in", "mlp_out"):
-            getattr(layer, lin).weight.copy_(_t(stacked[lin]["w"][l]).T)
-            getattr(layer, lin).bias.copy_(_t(stacked[lin]["b"][l]))
-
-    model.final_ln.weight.copy_(_t(params["final_ln"]["scale"]))
-    model.final_ln.bias.copy_(_t(params["final_ln"]["bias"]))
-    model.lm_head.weight.copy_(_t(params["lm_head"]).T)
+    model.load_state_dict(decoder_state_from_jax(params, config))
     return model.to(device).eval().requires_grad_(False)
+
+
+def decoder_to_jax(model: EtudeDecoder) -> ParamTree:
+    """The decoder's parameters as the JAX tree of numpy arrays: the exact
+    inverse of `decoder_from_jax`."""
+    return decoder_state_to_jax(dict(model.named_parameters()), model.config)
 
 
 def init_beat_params_np(config: BeatTransformerConfig, seed: int = 0,
