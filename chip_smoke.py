@@ -63,9 +63,27 @@ Phases, each announced with a flushed line when it starts and ends:
                     (labels shifted by one), a resume across an epoch within
                     the card's run-to-run spread (Adam moments zeroed), and
                     `--decode-only` serving the run's own export
+ 10. aux_train      the backward kernel K2b against autograd of K2's plain
+                    version at the training shape (B = 40, T = 512, all 9
+                    dilations) and the serving shape (B = 5, T = 12,288,
+                    three dilations), head7_bug both ways, timed, each
+                    beside a control (the gradient at another dilation)
+                    that it must catch, and K2's forward at the training
+                    shape; then `etude_tpu_torch.train_aux` in-process for
+                    beat, amt and separator at the published widths and
+                    the script's batches and frames, 30 steps each, with 2
+                    held-out clips: warm step time, the host's share of
+                    it, peak memory, a profiled window's device idle share,
+                    9 K2 and 9 K2b launches per beat step; checks, each
+                    beside a control it must catch: learning on one fixed
+                    batch (rate 0 changes nothing), one step on the card
+                    against the CPU (labels shifted), and `--input` on a
+                    30 s click track served from the phase's own exports
+                    (loaded, no random weights; 9 K2 launches)
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline, cli and train runs, each counted from 0, then
+serving, structuralize, pipeline, cli, train and aux_train runs, each
+counted from 0 (K2b's: the aux_train beat run's), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
 CUDA, and a directory that holds this script without the package. It
@@ -128,6 +146,39 @@ STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_MOMENT_RTOL, STEP_UPDATE_RTOL = 2e-3, 1e-3,
 # card that happens to be deterministic). The card is not: two straight
 # runs of 42 steps part by 1.4e-4 to 3.3e-4 in a loss of 3.0 on an H100.
 RESUME_SPREAD_FACTOR = 3.0
+# Aux training: optimizer steps of each CLI run, held-out clips, and the
+# dilations of K2b's check at the serving bucket.
+AUX_STEPS, AUX_EVAL_CLIPS, AUX_SERVE_SECONDS = 30, 2, 30.0
+# K2b against autograd of the plain version in f32 from the same bf16
+# inputs: dq, dk, dv within two bf16 ulps of each one's largest |value|
+# (kernel_tolerance: they are rounded once), der within this share of its
+# largest |value| (f32 sums over B*T in another order).
+DER_RTOL = 1e-3
+# Learning on one fixed batch of each model: AUX_STEPS steps at the mode's
+# rate must lower the loss by this fraction (on an H100: beat 6.45 -> 2.26,
+# amt 19.74 -> 7.83, separator 0.157 -> 0.040).
+AUX_LEARN_DROP = 0.5
+# One aux step (the second of a run, the first at rate > 0) at the published
+# widths on one row, against the port's CPU f32: relative limits on the
+# losses, the gradient norms and the parameter update, for the card at bf16
+# (the production path) and, for the separator, at f32 (TF32 off). Both
+# losses and both gradient norms are read before the first update at a rate
+# above 0, so only the update gap sees the optimizer step: a step that
+# applies no update reads exactly 1.0 there, a half-size one about 0.5. Each
+# row must catch two controls, the labels shifted and the rate halved; a row
+# whose update is not held (None) catches only the first. Measured on an
+# H100, card / labels shifted / rate halved:
+#   beat bf16       7.2e-5 / 2.3e-2 / 7.2e-5, 2.0e-3 / 3.7e-2 / 2.0e-3, 0.089 / 1.33 / 0.504
+#   amt bf16        5.6e-4 / 7.7e-4 / 5.6e-4, 1.5e-3 / 7.5e-4 / 1.5e-3, 0.086 / 0.315 / 0.504
+#   separator bf16  5.6e-4 / 6.4e-2,          1.5e-2 / 0.506,           0.57  / 1.46
+#   separator f32   9.5e-8 / 6.4e-2 / 9.5e-8, 3.0e-6 / 0.537 / 3.3e-6, 0.0037 / 1.46 / 0.500
+# At initialisation the hFT scores every frame alike, so shifting its labels
+# in time moves only the update's direction. The separator's bf16 update is
+# reported, not held: the card's f32 update is within 0.0037 of the CPU's,
+# so its bf16 gap of 0.57 is the bf16 U-Net's own, as large as a missing
+# update's.
+AUX_STEP_LIMITS = {"beat": {"bf16": (5e-3, 2e-2, 0.3)}, "amt": {"bf16": (5e-3, 2e-2, 0.2)},
+                   "separator": {"bf16": (5e-3, 0.1, None), "f32": (1e-5, 1e-4, 0.05)}}
 
 
 def say(msg: str) -> None:
@@ -1211,6 +1262,358 @@ def train_phase(root: Path, cli_root: Path) -> int:
             + train_serve(trained, cli_root, "trained_subset"))
 
 
+def check_dilated_backward(B, T, dilation, seed, flush, head7_bug=False):
+    """K2b against autograd of K2's plain version in f32 from the same bf16
+    inputs and dO (made on the card from a seed): dq, dk, dv within two bf16
+    ulps of each one's largest |value|, der within DER_RTOL of its largest
+    |value|; two launches must give the same bits; the gradient at another
+    dilation must fail the same check (the control). Timed with L2 flushed."""
+    import torch
+    from etude_tpu_torch.ops.dilated_attention import (
+        dilated_attention_backward, dilated_attention_backward_plain,
+    )
+    from etude_tpu_torch.utils.kernel_bench import (
+        dilated_backward_bound, dilated_inputs, kernel_tolerance, time_ms,
+    )
+
+    q, k, v, er = dilated_inputs(B, T, seed)
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed)).bfloat16()
+    H, d = q.shape[1], q.shape[3]
+    got = dilated_attention_backward(q, k, v, er, g, dilation, head7_bug)
+    again = dilated_attention_backward(q, k, v, er, g, dilation, head7_bug)
+    other = dilation * 2 if dilation * 2 <= 256 else dilation // 2
+    wrong = dilated_attention_backward(q, k, v, er, g, other, head7_bug)
+    torch.cuda.synchronize()
+    ref = dilated_attention_backward_plain(q, k, v, er, g, dilation, head7_bug)
+    name = f"K2b B={B} T={T} dilation={dilation} head7_bug={head7_bug}"
+
+    def tolerance(r, i):
+        top = r.abs().max().item()
+        return DER_RTOL * top if i == 3 else (kernel_tolerance(r) if top > 0 else 0.0)
+
+    tols = [tolerance(r, i) for i, r in enumerate(ref)]
+    errs = [(a.float() - r).abs().max().item() for a, r in zip(got, ref)]
+    control = [(a.float() - r).abs().max().item() for a, r in zip(wrong, ref)]
+    for a, b in zip(got, again):
+        if not torch.isfinite(a.float()).all():
+            raise RuntimeError(f"{name}: non-finite gradient")
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name}: two launches differ")
+    if any(e > t for e, t in zip(errs, tols)):
+        raise RuntimeError(f"{name}: max|kernel-plain| (dq, dk, dv, der) {errs} > {tols}")
+    if not any(c > t for c, t in zip(control, tols)):
+        raise RuntimeError(f"{name}: the control at dilation {other} passed the check")
+    if head7_bug and got[1][:, 7].any():
+        raise RuntimeError(f"{name}: head 7's keys received a gradient")
+    bound_ms, bound_by, n_bytes = dilated_backward_bound(B, H, T, d)
+    row = {
+        "B": B, "T": T, "dilation": dilation, "head7_bug": head7_bug,
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: dilated_attention_backward(q, k, v, er, g, dilation, head7_bug),
+                      flush=flush),
+        "plain_ms": time_ms(lambda: dilated_attention_backward_plain(
+            q, k, v, er, g, dilation, head7_bug), iters=5, flush=flush),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    scratch = 4 * B * H * T * 5 * 4
+    say(f"  K2b B={B:2d} T={T:5d} dil={dilation:3d}{' head7_bug' if head7_bug else ''}: "
+        f"max|err| dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} der {errs[3]:.3g} "
+        f"(tol {', '.join(f'{t:.3g}' for t in tols)}); control at dilation {other}: "
+        f"{', '.join(f'{c:.3g}' for c in control)}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, "
+        f"{bound_by}; with the f32 scratch {(n_bytes + scratch) / 1e6:.1f} MB)")
+    return row
+
+
+def aux_args(mode, **overrides):
+    """The CLI's settings for `mode` as `train_aux.TASKS` reads them."""
+    import argparse
+    from etude_tpu_torch import train_aux
+
+    batch, lr = train_aux.DEFAULTS[mode]
+    settings = dict(seed=0, batch=batch, lr=lr, steps=AUX_STEPS, eval_clips=AUX_EVAL_CLIPS,
+                    beat_frames=512, sep_frames=256, init_from=None)
+    settings.update(overrides)
+    return argparse.Namespace(**settings)
+
+
+def aux_cli_run(out: Path, mode: str):
+    """`python -m etude_tpu_torch.train_aux <mode>` in-process at the
+    published widths: 30 steps, 2 held-out clips. Returns the run, its warm
+    median step and its K2 and K2b launches."""
+    import math
+
+    import torch
+    from etude_tpu_torch import train_aux
+    from etude_tpu_torch.ops.dilated_attention import (
+        dilated_attention, dilated_attention_backward,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    dilated_attention.launches = dilated_attention_backward.launches = 0
+    t = time.perf_counter()
+    run, = train_aux.run([mode, "--steps", str(AUX_STEPS), "--eval-clips", str(AUX_EVAL_CLIPS),
+                          "--output-dir", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k2, k2b = dilated_attention.launches, dilated_attention_backward.launches
+    warm, waits = run.step_seconds[1:], run.wait_seconds[1:]
+    median = statistics.median(warm)
+    meta = json.loads((out / train_aux.EXPORT_NAMES[mode] / "metadata.json").read_text())
+    held_out = {k: v for k, v in meta.items() if k.endswith(("f_measure", "f1", "sdr_db"))}
+    say(f"  {mode}: {AUX_STEPS} steps in {wall:.2f} s (build, steps, evaluation, export); "
+        f"warm step median {1e3 * median:.2f} ms (min {1e3 * min(warm):.2f}, max "
+        f"{1e3 * max(warm):.2f}; CUDA events between steps); the host's batch wait "
+        f"{sum(waits) / sum(warm):.3f} of the warm steps' time (median wait "
+        f"{1e3 * statistics.median(waits):.2f} ms); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {run.losses[0]:.4f} -> "
+        f"{run.losses[-1]:.4f}; held-out {held_out}; K2 launches {k2}, K2b {k2b}")
+    if len(run.losses) != AUX_STEPS or not all(math.isfinite(x) for x in run.losses):
+        raise RuntimeError(f"{mode}: {len(run.losses)} steps, losses {run.losses}")
+    if not held_out or not all(math.isfinite(v) for v in held_out.values()):
+        raise RuntimeError(f"{mode}: held-out evaluation {held_out}")
+    # K2b: two kernel launches per call, one call per layer and step.
+    expect = ((9 * (AUX_STEPS + AUX_EVAL_CLIPS), 2 * 9 * AUX_STEPS) if mode == "beat"
+              else (0, 0))
+    if (k2, k2b) != expect:
+        raise RuntimeError(f"{mode}: K2/K2b launched {k2}/{k2b} times, expected {expect}")
+    return run, median, k2, k2b
+
+
+def aux_state(mode, device, config=None, lr=None, steps=AUX_STEPS, loss=None, **overrides):
+    """A fresh model of `mode` from seed 0 on `device`, training, with its
+    AdamW state, step function (of `loss`, else the task's) and task."""
+    import torch
+    from etude_tpu_torch import train_aux
+    from etude_tpu_torch.parallel.train_step import make_aux_optimizer, make_aux_train_step
+
+    args = aux_args(mode, **overrides)
+    task = train_aux.TASKS[mode](args, torch.device(device), config=config)
+    tx = make_aux_optimizer(args.lr if lr is None else lr, steps)
+    model = task.model.train().requires_grad_(True)
+    step = make_aux_train_step(tx, loss or task.loss, torch.device(device))
+    return task, tx.init(list(model.parameters())), step
+
+
+def device_aux_batch(host, device):
+    from etude_tpu_torch import train_aux
+
+    return train_aux.to_device(train_aux.host_tensors(host, False), device)
+
+
+def aux_profile(mode, median_s):
+    """3 warm steps of `mode` on pre-built batches, unprofiled then under
+    the profiler: device time per step against the CLI's warm median."""
+    import torch
+
+    task, opt, step = aux_state(mode, "cuda")
+    batches = [device_aux_batch(task.gen(i), "cuda") for i in range(5)]
+    for b in batches[:2]:
+        step(task.model, opt, b)
+
+    def window():
+        for b in batches[2:]:
+            step(task.model, opt, b)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    say(f"  {mode} profiled window: 3 steps on pre-built batches, unprofiled wall "
+        f"{1e3 * wall / 3:.2f} ms per step")
+    busy = profile_device(window, wall)
+    if busy is not None:
+        say(f"  {mode}: device time per step {busy / 3:.2f} ms -> device idle share of the "
+            f"CLI's warm step {1 - busy / 3 / (1e3 * median_s):.3f}")
+
+
+def aux_learning(mode):
+    """AUX_STEPS steps on one fixed batch lower its loss; at rate 0 the loss
+    and every parameter keep their bits."""
+    import torch
+    from etude_tpu_torch import train_aux
+
+    runs = {}
+    for lr in (None, 0.0):
+        task, _, _ = aux_state(mode, "cuda")
+        batch = task.gen(0)
+        rate = aux_args(mode).lr if lr is None else lr
+        before = [p.detach().clone() for p in task.model.parameters()]
+        losses, *_ = train_aux.train_loop(mode, task.model, task.loss, lambda i: batch,
+                                          AUX_STEPS, rate, "cuda", log_every=AUX_STEPS)
+        same = all(torch.equal(a, b) for a, b in zip(before, task.model.parameters()))
+        runs[lr] = (losses, same)
+        del task
+    (learn, _), (still, same) = runs[None], runs[0.0]
+    say(f"  {mode} learning, one fixed batch: loss {learn[0]:.4f} -> {learn[-1]:.4f} in "
+        f"{AUX_STEPS} steps (must fall by {AUX_LEARN_DROP:.0%}); control at rate 0: "
+        f"{still[0]:.6f} -> {still[-1]:.6f}, parameters unchanged: {same}")
+    if not learn[-1] <= (1 - AUX_LEARN_DROP) * learn[0]:
+        raise RuntimeError(f"{mode}: the loss fell from {learn[0]:.4f} to {learn[-1]:.4f} only")
+    if not same or max(still) != min(still):
+        raise RuntimeError(f"{mode}: at rate 0 the parameters or the loss moved")
+
+
+def shift_labels(mode, batch):
+    """The control of the card-vs-CPU step: the labels moved by 7 frames
+    (beat, amt; the tempo class by 17) or the stems rotated (separator)."""
+    import numpy as np
+
+    out = dict(batch)
+    if mode == "beat":
+        out["activations"] = np.roll(batch["activations"], 7, axis=1)
+        out["tempo"] = (batch["tempo"] + 17) % 300
+    elif mode == "amt":
+        for key in ("onset", "offset", "mpe", "velocity"):
+            out[key] = np.roll(batch[key], 7, axis=1)
+    else:
+        out["stem_mags"] = np.roll(batch["stem_mags"], 1, axis=1)
+    return out
+
+
+def aux_parity(mode):
+    """One optimizer step (the second of a run, the first at rate > 0) of
+    `mode` at the published widths on one row, on the card against the
+    port's CPU f32, at each precision of AUX_STEP_LIMITS, beside controls
+    with the labels shifted and with the rate halved. The hFT runs 128-frame
+    segments here (its widths kept) to bound the CPU's time."""
+    import torch
+    from etude_tpu_torch.models import separator as sep
+    from etude_tpu_torch.models.amt import AMTConfig
+
+    config = AMTConfig(n_frame=128) if mode == "amt" else None
+    host = aux_state(mode, "cpu", config=config, batch=1)[0].gen(0)
+    rate = aux_args(mode).lr
+
+    def two_steps(device, batch, f32=False, lr=rate):
+        loss = (lambda m, b: sep.loss_fn(m, b, torch.float32)) if f32 else None
+        task, opt, step = aux_state(mode, device, config=config, lr=lr, batch=1, steps=2,
+                                    loss=loss)
+        start = [p.detach().clone() for p in task.model.parameters()]
+        b = device_aux_batch(batch, device)
+        metrics = [step(task.model, opt, b) for _ in range(2)]
+        return {"loss": [float(m["loss"]) for m in metrics],
+                "grad_norm": [float(m["grad_norm"]) for m in metrics],
+                "update": torch.cat([(p.detach() - s).flatten().float().cpu()
+                                     for p, s in zip(task.model.parameters(), start)])}
+
+    def gaps(x, ref):
+        return (max(abs(a / b - 1) for a, b in zip(x["loss"], ref["loss"])),
+                max(abs(a / b - 1) for a, b in zip(x["grad_norm"], ref["grad_norm"])),
+                float(torch.linalg.vector_norm(x["update"] - ref["update"])
+                      / torch.linalg.vector_norm(ref["update"])))
+
+    def over(g, limits):
+        return any(x is not None and a > x for a, x in zip(g, limits))
+
+    def show(g):
+        return ", ".join(f"{a:.3g}" for a in g)
+
+    ref = two_steps("cpu", host)
+    for precision, limits in AUX_STEP_LIMITS[mode].items():
+        f32 = precision == "f32"
+        got = gaps(two_steps("cuda", host, f32), ref)
+        controls = {"labels shifted": gaps(two_steps("cuda", shift_labels(mode, host), f32), ref)}
+        if limits[2] is not None:
+            controls["rate halved"] = gaps(two_steps("cuda", host, f32, lr=rate / 2), ref)
+        say(f"  {mode} one step, card {precision} vs CPU f32: losses {ref['loss']}; relative "
+            f"gaps (loss, grad norm, update) {show(got)} (limits "
+            + ", ".join("not held" if x is None else f"{x:g}" for x in limits) + "); controls: "
+            + "; ".join(f"{name} {show(g)}" for name, g in controls.items()))
+        if over(got, limits):
+            raise RuntimeError(f"{mode}: the card's {precision} step differs from the CPU's "
+                               "beyond the limits")
+        for name, g in controls.items():
+            if not over(g, limits):
+                raise RuntimeError(f"{mode}: the {precision} step check missed its control "
+                                   f"({name})")
+
+
+def aux_serve(root: Path, exports: Path) -> int:
+    """`--input` on a 30 s click track with the separator, beat model and
+    extractor read from the phase's exports and the decoder from a params-
+    only export of seeded random weights, without --allow-random-weights
+    (a model that did not load raises); returns the run's K2 launches."""
+    from etude_tpu_torch import infer
+    from etude_tpu_torch.models.decoder import EtudeDecoderConfig
+    from etude_tpu_torch.ops.dilated_attention import (
+        dilated_attention, dilated_attention_backward,
+    )
+    from etude_tpu_torch.utils.training import save_params_only
+    from etude_tpu_torch.weights import init_decoder_params_np
+
+    config = EtudeDecoderConfig.from_json_file(
+        ROOT / "checkpoints/decoder/etude_decoder_config.json")
+    save_params_only(root / "decoder" / "model", init_decoder_params_np(config, seed=0), config)
+    wav = root / "click_30s.wav"
+    write_click_wav(wav, AUX_SERVE_SECONDS, seed=2)
+    settings = root / "served.json"
+    settings.write_text(json.dumps({
+        "paths": {
+            "infer_output_dir": str(root / "outputs" / "infer"),
+            "separator_model": str(exports / "separator" / "latest"),
+            "beat_detector_model": str(exports / "beat_detector" / "latest"),
+            "extractor_model": str(exports / "extractor" / "latest"),
+            "decoder_model": str(root / "decoder" / "model"),
+            "decoder_config": str(root / "decoder" / "etude_decoder_config.json"),
+            "decoder_vocab": str(ROOT / "checkpoints/decoder/vocab.json"),
+        },
+        "decoder": {"max_bar_token_limit": 32},
+    }))
+    dilated_attention.launches = dilated_attention_backward.launches = 0
+    t = time.perf_counter()
+    rc = infer.main(["--config", str(settings), "--input", str(wav), "--output_name", "aux",
+                     "--seed", "7"])
+    wall = time.perf_counter() - t
+    k2, k2b = dilated_attention.launches, dilated_attention_backward.launches
+    work = root / "outputs" / "infer" / "temp"
+    midi = root / "outputs" / "infer" / "aux.mid"
+    if rc != 0 or not midi.exists():
+        raise RuntimeError(f"infer --input from the aux exports exited {rc}")
+    notes = json.loads((work / "extract.json").read_text())
+    check_notes(notes, AUX_SERVE_SECONDS)
+    tempo = json.loads((work / "tempo.json").read_text())
+    check_tempo(tempo, AUX_SERVE_SECONDS)
+    say(f"  --input from the exports ({exports}): {wall:.2f} s, extract.json {len(notes)} "
+        f"notes, tempo.json {len(tempo)} region(s); K2 launches {k2} (expected 9), K2b {k2b}")
+    if k2 != 9 or k2b != 0:
+        raise RuntimeError(f"serving the exports launched K2 {k2} and K2b {k2b} times")
+    return k2
+
+
+def aux_train_phase(root: Path, flush):
+    """The aux_train phase; returns (K2 launches, K2b launches, K2b rows)."""
+    import torch
+
+    # K2's forward at the training shape first: its backward rests on it.
+    for i in range(9):
+        check_dilated(40, 512, 2 ** i, 300 + i, flush)
+    rows = [check_dilated_backward(40, 512, 2 ** i, 400 + i, flush) for i in range(9)]
+    rows += [check_dilated_backward(40, 512, dil, 500 + dil, flush, head7_bug=True)
+             for dil in (1, 8, 256)]
+    rows += [check_dilated_backward(5, 12288, dil, 600 + dil, flush) for dil in (1, 16, 256)]
+    train = [r for r in rows if r["T"] == 512 and not r["head7_bug"]]
+    say(f"  K2b, one beat training step at B=40 T=512 (9 calls, 18 launches): kernel "
+        f"{sum(r['ms'] for r in train):.4f} ms, plain {sum(r['plain_ms'] for r in train):.4f} ms, "
+        f"bound {sum(r['bound_ms'] for r in train):.4f} ms")
+
+    exports = root / "exports"
+    k2 = k2b = 0
+    for mode in ("beat", "amt", "separator"):
+        run, median, a, b = aux_cli_run(exports, mode)
+        k2, k2b = k2 + a, k2b + b
+        aux_profile(mode, median)
+        torch.cuda.empty_cache()
+    for mode in ("beat", "amt", "separator"):
+        aux_learning(mode)
+        aux_parity(mode)
+        torch.cuda.empty_cache()
+    k2 += aux_serve(root / "serve", exports)
+    return k2, k2b, rows
+
+
 def main() -> int:
     import torch
 
@@ -1350,7 +1753,14 @@ def main() -> int:
         with phase("train"):
             launches += train_phase(tmp / "train", tmp / "cli")
 
+        with phase("aux_train"):
+            from etude_tpu_torch.utils.kernel_bench import L2Flush
+
+            aux_k2, k2b_launches, k2b_rows = aux_train_phase(tmp / "aux", L2Flush())
+            k2_launches += aux_k2
+
     main_row = rows[len(shapes) - 1]
+    k2b_train = [r for r in k2b_rows if r["T"] == 512 and not r["head7_bug"]]
     say(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -1376,6 +1786,20 @@ def main() -> int:
         "plain_ms": statistics.mean(r["plain_ms"] for r in k2_main),
         "bound_ms": statistics.mean(r["bound_ms"] for r in k2_main),
         "bound_by": k2_main[0]["bound_by"],
+        "library_ms": None,
+    }, {
+        # K2's backward, per call (two launches) on the main path: the mean
+        # over the 9 dilations of one beat training step (B = 40, T = 512).
+        "name": "dilated_attention_backward",
+        "route": "cuda",
+        "source": "etude_tpu_torch/csrc/dilated_attention_bwd.cu",
+        "replaces": "etude_tpu/ops/dilated_attention.py:276",
+        "launches": k2b_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k2b_rows),
+        "ms": statistics.mean(r["ms"] for r in k2b_train),
+        "plain_ms": statistics.mean(r["plain_ms"] for r in k2b_train),
+        "bound_ms": statistics.mean(r["bound_ms"] for r in k2b_train),
+        "bound_by": k2b_train[0]["bound_by"],
         "library_ms": None,
     }]}))
     say(smi)

@@ -23,11 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from . import param_count  # noqa: F401  (re-exported, as in the JAX module)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +145,15 @@ def _enc_layer(x: torch.Tensor, layer: _EncoderLayer, n_heads: int,
     return _ln(x + _ffwd(x, layer.ff, dtype), layer.ln[1])
 
 
+def _dec_layer(q: torch.Tensor, enc: torch.Tensor, layer: _DecoderLayer,
+               n_heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """Post-LN note-query layer: self-attention, cross-attention to the
+    frequency encoder, feed-forward (JAX: `dec_body` :238)."""
+    q = _ln(q + _mha(q, q, layer.self_attn, n_heads, dtype), layer.ln[0])
+    q = _ln(q + _mha(q, enc, layer.cross, n_heads, dtype), layer.ln[1])
+    return _ln(q + _ffwd(q, layer.ff, dtype), layer.ln[2])
+
+
 class HFT(nn.Module):
     """`forward(spec)` → both head sets, as the JAX `forward`."""
 
@@ -197,12 +209,23 @@ class HFT(nn.Module):
                                    ).reshape(B, T, -1, self.config.n_velocity)
         return out
 
-    def forward(self, spec: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, spec: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> Dict[str, torch.Tensor]:
         """spec [B, n_bin, n_margin + T + n_margin] → {onset, offset, mpe}_
         {freq, time} sigmoids [B, T, n_note] and velocity_{freq, time} logits
-        [B, T, n_note, n_velocity], T = n_frame."""
+        [B, T, n_note, n_velocity], T = n_frame.
+
+        remat=True checkpoints every layer body of the frequency encoder,
+        the note-query layers after the first and the time encoder
+        (`torch.utils.checkpoint`, as the JAX forward's `jax.checkpoint` of
+        its scanned bodies, :183-188): the backward recomputes them instead
+        of keeping their attention and feed-forward intermediates."""
         c, dtype = self.config, compute_dtype
+
+        def layer_call(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
         B = spec.shape[0]
         T, nbin, H = c.n_frame, c.n_bin, c.hid_dim
 
@@ -216,7 +239,7 @@ class HFT(nn.Module):
         # Frequency self-attention encoder over the bin axis.
         enc = x.reshape(B * T, nbin, H)
         for layer in self.enc_layers:
-            enc = _enc_layer(enc, layer, c.encoder_n_head, dtype)
+            enc = layer_call(_enc_layer, enc, layer, c.encoder_n_head, dtype)
 
         # CAfreq: the note queries cross-attend to the frequency axis.
         q = self.note_query.to(dtype)[None].expand(B * T, c.n_note, H)
@@ -224,19 +247,59 @@ class HFT(nn.Module):
         q = _ln(q + _mha(q, enc, z.cross, c.decoder_n_head, dtype), z.ln[0])
         q = _ln(q + _ffwd(q, z.ff, dtype), z.ln[1])
         for layer in self.dec_layers:
-            q = _ln(q + _mha(q, q, layer.self_attn, c.decoder_n_head, dtype), layer.ln[0])
-            q = _ln(q + _mha(q, enc, layer.cross, c.decoder_n_head, dtype), layer.ln[1])
-            q = _ln(q + _ffwd(q, layer.ff, dtype), layer.ln[2])
+            q = layer_call(_dec_layer, q, enc, layer, c.decoder_n_head, dtype)
         heads_a = self._apply_heads(q, self.heads_freq, B, T)
 
         # SAtime: per-note self-attention over the time axis.
         y = q.reshape(B, T, c.n_note, H).transpose(1, 2).reshape(B * c.n_note, T, H)
         y = y * math.sqrt(H) + self.time_pos_emb[:T].to(dtype)
         for layer in self.time_layers:
-            y = _enc_layer(y, layer, c.decoder_n_head, dtype)
+            y = layer_call(_enc_layer, y, layer, c.decoder_n_head, dtype)
         y = y.reshape(B, c.n_note, T, H).transpose(1, 2).reshape(B * T, c.n_note, H)
         heads_b = self._apply_heads(y, self.heads_time, B, T)
 
         out = {f"{k}_freq": v for k, v in heads_a.items()}
         out.update({f"{k}_time": v for k, v in heads_b.items()})
         return out
+
+
+def loss_fn(model: HFT, batch: Dict[str, torch.Tensor],
+            compute_dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+            pos_weights: Optional[Dict[str, float]] = None,
+            head_scales: Optional[Dict[str, float]] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The hFT objective (JAX `loss_fn` :304): BCE on the onset, offset and
+    MPE sigmoids (predictions clipped to [1e-7, 1 - 1e-7]) and cross-entropy
+    on the velocity logits, over both head sets.
+
+    Batch: spec [B, n_bin, margin + T + margin]; onset, offset, mpe
+    [B, T, n_note] in [0, 1]; velocity [B, T, n_note] int classes.
+    pos_weights: positive-class weights of the BCE per head ("onset",
+    "offset", "mpe"), and the velocity CE's weights at sounding
+    ("velocity") and silent ("velocity_silent") cells; head_scales: a
+    multiplier per head on its loss terms. Both default to 1."""
+    out = model(batch["spec"], compute_dtype, remat=remat)
+    pos_weights = pos_weights or {}
+    head_scales = head_scales or {}
+
+    def bce(pred, target, pos_w):
+        pred = pred.clamp(1e-7, 1 - 1e-7)
+        return -(pos_w * target * torch.log(pred) + (1 - target) * torch.log(1 - pred)).mean()
+
+    loss = 0.0
+    metrics: Dict[str, torch.Tensor] = {}
+    velocity = batch["velocity"].long()
+    for branch in ("freq", "time"):
+        for head in HEADS:
+            term = bce(out[f"{head}_{branch}"], batch[head], pos_weights.get(head, 1.0))
+            metrics[f"{head}_{branch}_bce"] = term
+            loss = loss + head_scales.get(head, 1.0) * term
+        logp = torch.log_softmax(out[f"velocity_{branch}"], dim=-1)
+        vel_ll = logp.gather(-1, velocity[..., None])[..., 0]
+        w = torch.where(velocity > 0, pos_weights.get("velocity", 1.0),
+                        pos_weights.get("velocity_silent", 1.0)).to(vel_ll.dtype)
+        term = -(vel_ll * w).sum() / w.sum().clamp(min=1e-6)
+        metrics[f"velocity_{branch}_ce"] = term
+        loss = loss + head_scales.get("velocity", 1.0) * term
+    metrics["loss"] = loss
+    return loss, metrics

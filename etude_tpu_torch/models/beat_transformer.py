@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dilated_attention import dilated_attention
+from . import param_count  # noqa: F401  (re-exported, as in the JAX module)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,3 +162,24 @@ class BeatTransformer(nn.Module):
         t = F.relu(skips).mean(dim=1)
         tempo = F.linear(t.float(), self.out_tempo.weight, self.out_tempo.bias)
         return act, tempo
+
+
+def loss_fn(model: BeatTransformer, batch: Dict[str, torch.Tensor],
+            compute_dtype: torch.dtype = torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BCE on the (beat, downbeat) activation logits plus cross-entropy on
+    the tempo head (JAX `loss_fn` :202). Batch: x [B, instr, T, mel];
+    activations [B, T, 2] in [0, 1]; tempo [B] int classes; optional mask
+    [B, T], over which the BCE is a masked mean."""
+    act_logits, tempo_logits = model(batch["x"], compute_dtype)
+    target = batch["activations"]
+    bce = -(target * F.logsigmoid(act_logits) + (1 - target) * F.logsigmoid(-act_logits))
+    mask = batch.get("mask")
+    if mask is not None:
+        act_loss = (bce * mask[..., None]).sum() / (mask.sum() * 2).clamp(min=1)
+    else:
+        act_loss = bce.mean()
+    tempo_logp = torch.log_softmax(tempo_logits, dim=-1)
+    tempo_loss = -tempo_logp.gather(-1, batch["tempo"].long()[:, None]).mean()
+    loss = act_loss + tempo_loss
+    return loss, {"loss": loss, "act_bce": act_loss, "tempo_ce": tempo_loss}

@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from . import param_count  # noqa: F401  (re-exported, as in the JAX module)
+
 # Attribute order is part of the data contract (concatenation order of the
 # attribute embeddings before projection).
 ATTRIBUTE_ORDER = ("pitch_overlap", "polyphony", "sustain", "rhythm_intensity")
@@ -252,10 +254,6 @@ class EtudeDecoder(nn.Module):
                                   config, attend)
             h = checkpoint(run, h, use_reentrant=False) if remat else run(h)
         return self.head(h)
-
-
-def param_count(model: nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
 
 
 def loss_fn(model: EtudeDecoder, batch: Dict[str, torch.Tensor],

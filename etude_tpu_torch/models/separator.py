@@ -17,11 +17,13 @@ dtype (bf16 by default), as in the JAX package; parameters are f32 masters.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import param_count  # noqa: F401  (re-exported, as in the JAX module)
 
 STEM_NAMES = ("vocals", "drums", "bass", "piano", "other")
 
@@ -119,3 +121,15 @@ class Separator(nn.Module):
                                      1.0 / config.num_stems)
             masks = torch.cat([masks, uniform], dim=-1)
         return masks
+
+
+def loss_fn(model: Separator, batch: Dict[str, torch.Tensor],
+            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """L1 between the masked mixture and each stem's magnitude over the
+    model band, the model fed log1p of the mixture (JAX `loss_fn` :179).
+    Batch: mix_mag [B, T, F]; stem_mags [B, num_stems, T, F]."""
+    band = min(batch["mix_mag"].shape[-1], model.config.freq_bins)
+    mix = batch["mix_mag"][..., :band]
+    stems = batch["stem_mags"][..., :band]
+    masks = model(torch.log1p(mix), compute_dtype)
+    return (masks * mix[:, None] - stems).abs().mean()

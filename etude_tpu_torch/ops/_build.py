@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 NATIVE_DIR = PKG_DIR / "native"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-CUDA_SOURCES = ("decode_attention", "dilated_attention")   # csrc/<name>.cu
+CUDA_SOURCES = ("decode_attention", "dilated_attention", "dilated_attention_bwd")  # csrc/<name>.cu
 HOST_SOURCES = ("dbn_viterbi",)                             # native/<name>.cc
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 NVCC_FLAGS = (

@@ -23,6 +23,13 @@ cp.async, two lanes per query read every slot from there, and persistent
 blocks stage the next tile while they compute this one. Each k and v row
 crosses from L2 about once instead of up to 5 times. The source says what
 the design still leaves behind.
+
+Gradient: on CUDA tensors the output comes from `_DilatedAttention`, whose
+backward is the hand kernel K2b (csrc/dilated_attention_bwd.cu,
+`dilated_attention_backward`): the gradient that jax.grad takes through the
+JAX `dilated_attention` (:106), which the TPU kernel lacks. On CPU tensors
+autograd differentiates the plain version, which is also K2b's oracle
+(`dilated_attention_backward_plain`).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -41,6 +49,7 @@ from . import _build
 HEAD_SHIFTS = (0, 0, 0, 0, -2, -1, 1, 2)
 HEAD_DIM = 32          # the kernel's d; the Beat-Transformer's 256 / 8 heads
 ATTN_LEN = 5           # the kernel's slots per query
+BWD_TILE = 128         # K2b's queries per block (kThreads in the source)
 
 
 def head_offsets(n_heads: int, attn_len: int) -> np.ndarray:
@@ -94,6 +103,19 @@ def dilated_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return acc.to(q.dtype)
 
 
+
+
+def dilated_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     er: torch.Tensor, grad_out: torch.Tensor,
+                                     dilation: int, head7_bug: bool = False):
+    """K2b's plain version: autograd of `dilated_attention_plain` in f32 from
+    the same inputs. Returns (dq, dk, dv, der), f32, shaped as the inputs."""
+    with torch.enable_grad():
+        inputs = [t.detach().float().requires_grad_(True) for t in (q, k, v, er)]
+        out = dilated_attention_plain(*inputs, dilation, head7_bug)
+        return torch.autograd.grad(out, inputs, grad_out.float())
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("dilated_attention").dilated_attention_launch
@@ -103,7 +125,16 @@ def _launcher():
     return fn
 
 
-def _check_cuda_inputs(q, k, v, er):
+@functools.cache
+def _backward_launcher():
+    fn = _build.load("dilated_attention_bwd").dilated_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_inputs(q, k, v, er, dilation):
     if q.dim() != 4 or er.dim() != 3:
         raise ValueError(f"expected q/k/v [B,H,T,d] and er [H,d,A]; got "
                          f"{tuple(q.shape)}, {tuple(er.shape)}")
@@ -113,6 +144,8 @@ def _check_cuda_inputs(q, k, v, er):
                          f"got q {tuple(q.shape)}, er {tuple(er.shape)}")
     if H > len(HEAD_SHIFTS):
         raise ValueError(f"the kernel takes at most {len(HEAD_SHIFTS)} heads, got {H}")
+    if dilation <= 0:
+        raise ValueError(f"dilation must be positive, got {dilation}")
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)} differs from q {tuple(q.shape)}")
@@ -128,16 +161,106 @@ def _check_cuda_inputs(q, k, v, er):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+def _first_offsets(H: int):
+    return (ctypes.c_int * H)(*head_offsets(H, ATTN_LEN)[:, 0].tolist())
+
+
+def _er_rows(er: torch.Tensor) -> torch.Tensor:
+    return er.float().transpose(1, 2).contiguous()        # [H, A, d] f32
+
+
+def _forward_kernel(q, k, v, er, dilation, head7_bug):
+    """K2: one launch, counted in `dilated_attention.launches`."""
+    _check_cuda_inputs(q, k, v, er, dilation)
+    B, H, T, d = q.shape
+    er_t = _er_rows(er)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), er_t.data_ptr(),
+                     out.data_ptr(), B, H, T, d, ATTN_LEN, dilation,
+                     int(head7_bug and H == 8), _first_offsets(H), stream)
+    if rc != 0:
+        raise RuntimeError(f"dilated_attention kernel launch failed: CUDA error {rc}")
+    dilated_attention.launches += 1
+    return out
+
+
+def dilated_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               er: torch.Tensor, grad_out: torch.Tensor,
+                               dilation: int, head7_bug: bool = False):
+    """K2b on CUDA tensors: (dq, dk, dv) in bf16 and der f32 [H, d, A], the
+    gradient of `dilated_attention`'s output against `grad_out`. Two
+    launches (per query, then per key row) and a fixed-order sum of der's
+    per-block partials; one call adds its two kernel launches to
+    `dilated_attention_backward.launches`. Raises on what the kernel does
+    not take, as the forward does."""
+    if not all(t.is_cuda for t in (q, k, v, er, grad_out)):
+        raise ValueError("dilated_attention_backward launches the CUDA kernel: every "
+                         "tensor must be on one CUDA device (on the CPU, autograd "
+                         "differentiates the plain version)")
+    _check_cuda_inputs(q, k, v, er, dilation)
+    if grad_out.shape != q.shape or grad_out.device != q.device:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} on {grad_out.device} does not "
+                         f"match q {tuple(q.shape)} on {q.device}")
+    # dO arrives from a transpose's backward: contiguous bf16, 16-byte aligned.
+    g = grad_out.to(torch.bfloat16).contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    B, H, T, d = q.shape
+    er_t = _er_rows(er)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    p = torch.empty(B, H, T, ATTN_LEN, dtype=torch.float32, device=q.device)
+    ds = torch.empty_like(p)
+    tiles = -(-T // BWD_TILE)
+    part = torch.empty(B, H, tiles, ATTN_LEN, d, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _backward_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), er_t.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), p.data_ptr(), ds.data_ptr(),
+        part.data_ptr(), B, H, T, d, ATTN_LEN, dilation, int(head7_bug and H == 8),
+        _first_offsets(H), stream)
+    if rc != 0:
+        raise RuntimeError(f"dilated_attention backward launch failed: CUDA error {rc}")
+    dilated_attention_backward.launches += 2
+    der = part.sum(dim=(0, 2)).transpose(1, 2)            # [H, d, A]
+    return dq, dk, dv, der
+
+
+dilated_attention_backward.launches = 0
+
+
+class _DilatedAttention(torch.autograd.Function):
+    """K2 forward, K2b backward. Under torch.utils.checkpoint the forward
+    runs again in the backward pass, and counts again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, er, dilation, head7_bug):
+        ctx.save_for_backward(q, k, v, er)
+        ctx.dilation, ctx.head7_bug = dilation, head7_bug
+        return _forward_kernel(q, k, v, er, dilation, head7_bug)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, er = ctx.saved_tensors
+        dq, dk, dv, der = dilated_attention_backward(q, k, v, er, grad_out,
+                                                     ctx.dilation, ctx.head7_bug)
+        # der is f32; the cast to er's type is the backward of the caller's cast.
+        return dq, dk, dv, der.to(er.dtype), None, None
+
+
 def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       er: torch.Tensor, dilation: int,
                       head7_bug: bool = False) -> torch.Tensor:
     """Returns the [B, H, T, d] attention output in q's dtype.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    (q/k/v bf16 and contiguous, d = 32, 5 slots, at most 8 heads; er any
-    float, used in f32) or raise; there is no fallback. Each launch adds one
-    to `dilated_attention.launches`. head7_bug=True scores head 7 against
-    head 6's keys (for checkpoints trained with the reference's bug).
+    CPU tensors take the plain version, which autograd differentiates. CUDA
+    tensors launch the kernel (q/k/v bf16 and contiguous, d = 32, 5 slots,
+    at most 8 heads; er any float, used in f32) or raise; there is no
+    fallback. The output's backward is K2b. Each forward launch adds one to
+    `dilated_attention.launches`. head7_bug=True scores head 7 against head
+    6's keys (for checkpoints trained with the reference's bug); the key
+    gradient then goes to head 6, as JAX's k.at[:, 7].set(k[:, 6]).
     """
     tensors = (q, k, v, er)
     if all(t.device.type == "cpu" for t in tensors):
@@ -145,21 +268,7 @@ def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_cuda for t in tensors):
         raise ValueError("dilated_attention: tensors must all be on the CPU "
                          "or all on one CUDA device")
-    _check_cuda_inputs(q, k, v, er)
-    B, H, T, d = q.shape
-    if dilation <= 0:
-        raise ValueError(f"dilation must be positive, got {dilation}")
-    er_t = er.float().transpose(1, 2).contiguous()        # [H, A, d] f32
-    first = (ctypes.c_int * H)(*head_offsets(H, ATTN_LEN)[:, 0].tolist())
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), er_t.data_ptr(),
-                     out.data_ptr(), B, H, T, d, ATTN_LEN, dilation,
-                     int(head7_bug and H == 8), first, stream)
-    if rc != 0:
-        raise RuntimeError(f"dilated_attention kernel launch failed: CUDA error {rc}")
-    dilated_attention.launches += 1
-    return out
+    return _DilatedAttention.apply(q, k, v, er, dilation, head7_bug)
 
 
 dilated_attention.launches = 0

@@ -1,5 +1,6 @@
 """Mel filterbanks, the matmul DFT of the separation features and the
-extractor's log-mel (JAX counterpart: etude_tpu/ops/mel.py).
+extractor's log-mel, on the device and in numpy (JAX counterpart:
+etude_tpu/ops/mel.py).
 
 The DFT is two f32 matmuls against cos/sin bases, as in the JAX package; it
 lies outside any TPU kernel there and is a plain `torch.matmul` here. The
@@ -155,6 +156,40 @@ def log_mel_spectrogram(
     power = frame_power_spectrum(frames, cos_m, sin_m)
     mel = power @ _mel_fb_device(sr, n_fft, n_mels, fmin, fmax, device)
     return torch.log(mel + log_offset)
+
+
+def log_mel_spectrogram_host(
+    wave: np.ndarray,
+    *,
+    sr: int = 16000,
+    n_fft: int = 2048,
+    hop: int = 256,
+    win_length: int = 2048,
+    n_mels: int = 256,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+    log_offset: float = 1e-8,
+    center: bool = True,
+) -> np.ndarray:
+    """`log_mel_spectrogram`'s semantics in numpy, [n_frames, n_mels] f32
+    (JAX: `log_mel_spectrogram_host` :212): for building training batches
+    on the host's worker threads, where a device mel per example would
+    serialize them on the card."""
+    wave_np = np.asarray(wave, np.float32)
+    if center:
+        wave_np = reflect_pad_host(wave_np, n_fft // 2)
+    n_frames = 1 + max(len(wave_np) - n_fft, 0) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    frames = wave_np[idx]
+
+    window = hann_window(win_length)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    spec = np.fft.rfft(frames * window[None, :], axis=-1)
+    power = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    return np.log(power @ fb + log_offset)
 
 
 def wav_to_logmel(wave: np.ndarray, feature_cfg, device=None) -> np.ndarray:

@@ -7,13 +7,17 @@ its own, ahead of use; the consumer's stream waits on each batch's copy
 event, and each tensor is recorded on the consumer's stream so the allocator
 keeps its memory until the step that reads it is done. On the CPU the same
 thread hands over plain tensors.
+
+`prefetch` is the auxiliary models' host pipeline (scripts/
+train_aux_synthetic.py :49): batches built by worker threads, steps striped
+over them.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -127,3 +131,30 @@ def prefetch_to_device(batch_iter, device, accum_steps: int):
         return out, copied
 
     return _OnStream(DevicePrefetcher(batch_iter, place=place), device)
+
+
+def prefetch(gen_fn: Callable[[int], Any], n_steps: int, depth: int = 4,
+             workers: int = 1) -> Iterator[Any]:
+    """Yields `gen_fn(i)` for `n_steps` steps, built up to `depth` ahead on
+    `workers` daemon threads. With workers > 1, worker w builds steps w,
+    w + workers, ..., and batches may arrive out of order: a `gen_fn` that
+    draws from one shared generator then gives an order that no seed
+    reproduces (the JAX script's semantics, kept). An exception in `gen_fn`
+    is raised in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    failed = object()
+
+    def worker(w):
+        try:
+            for i in range(w, n_steps, workers):
+                q.put(gen_fn(i))
+        except BaseException as exc:  # handed to the consumer
+            q.put((failed, exc))
+
+    for w in range(workers):
+        threading.Thread(target=worker, args=(w,), daemon=True).start()
+    for _ in range(n_steps):
+        item = q.get()
+        if isinstance(item, tuple) and len(item) == 2 and item[0] is failed:
+            raise item[1]
+        yield item

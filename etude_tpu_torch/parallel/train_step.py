@@ -11,6 +11,10 @@ applied or skipped, with no host synchronization. The optimizer is optax's
 skip can be a device-side select. The places where optax's semantics are
 kept are marked "optax:".
 
+The auxiliary models' step (`make_aux_optimizer`, `make_aux_train_step`) is
+the jitted step of scripts/train_aux_synthetic.py `train_loop` (:69-95): the
+same AdamW with its own schedule and b2, one batch, no skip.
+
 Multi-device training (the JAX package's data-parallel mesh and
 `init_sharded_state` :79, FSDP) is not ported; `train.py` raises on it.
 """
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -145,6 +149,46 @@ def make_optimizer(
     tx = AdamW(schedule, b1=beta1, b2=beta2, weight_decay=weight_decay,
                clip_grad_norm=clip_grad_norm)
     return tx, schedule
+
+
+def make_aux_optimizer(learning_rate: float, steps: int) -> AdamW:
+    """The auxiliary models' optimizer (scripts/train_aux_synthetic.py
+    :71-84): optax `chain(clip_by_global_norm(1.0), adamw(join_schedules(
+    [linear_schedule(0, lr, W), cosine_decay_schedule(lr, max(steps, 2))],
+    [W]), weight_decay=0.01))` with W = max(steps // 20, 1). Unlike the
+    decoder's (`make_optimizer`): the cosine runs over max(steps, 2) steps
+    from the boundary, not total - warmup, and b2 is optax's default 0.999,
+    not 0.98. Decay on every leaf; no skip."""
+    warmup = max(steps // 20, 1)
+    return AdamW(LRSchedule(learning_rate, warmup, max(steps, 2)), b1=0.9, b2=0.999,
+                 weight_decay=0.01, clip_grad_norm=1.0)
+
+
+def make_aux_train_step(tx: AdamW, loss: Callable[[torch.nn.Module, Dict[str, Any]], Any],
+                        device: torch.device):
+    """`step(model, opt_state, batch)` for a model on `device`: the gradient
+    of `loss(model, batch)` (a scalar, or (scalar, metrics)), clipped, then
+    one AdamW update of the model's parameters and `opt_state` in place,
+    always applied. Returns the metrics, computed before the update, as
+    device tensors ({"loss": loss} for a scalar loss), with the gradient
+    norm before the clip."""
+    apply = torch.ones((), dtype=torch.bool, device=device)
+
+    def step(model: torch.nn.Module, opt_state: AdamWState,
+             batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        out = loss(model, batch)
+        value, metrics = out if isinstance(out, tuple) else (out, {"loss": out})
+        value.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grad_norm = tx.update(grads, opt_state, params, apply)
+        for p in params:
+            p.grad = None
+        return {**{k: v.detach() for k, v in metrics.items()}, "grad_norm": grad_norm}
+
+    return step
 
 
 @dataclasses.dataclass

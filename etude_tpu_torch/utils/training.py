@@ -6,10 +6,14 @@ orbax):
 
 - A params-only export (`save_params_only`, what serving loads) is a
   directory holding `params.npz`: the JAX package's parameter tree as numpy
-  arrays, f32 as trained, one entry per leaf under its `/`-joined path
-  (`layers/qkv/w`). The weight bridge (`weights.py`) reads it as it reads
-  any JAX tree, so a later export of an orbax checkpoint into this format
-  serves the same way. The directory's name carries no suffix: `.pt`,
+  arrays, one entry per leaf under its `/`-joined path (`layers/qkv/w`; a
+  list index is a path element of digits, `layers/3/q/w`). The decoder's
+  export keeps f32 as trained; the auxiliary models' (`save_aux_params`)
+  stores floats as f16, as the JAX package's `save_aux_params` does, with
+  the training's `metadata.json` beside the directory. `load_params_only`
+  promotes f16 to f32. The weight bridge (`weights.py`) reads the tree as
+  it reads any JAX tree, so a later export of an orbax checkpoint into this
+  format serves the same way. The directory's name carries no suffix: `.pt`,
   `.pth` and `.pkl` stay the reference's checkpoints.
 - A training checkpoint (`save_checkpoint`) is a directory `latest` holding
   `params.npz` as above and `opt_state.npz`: the Adam moments as two more
@@ -28,14 +32,14 @@ import json
 import random
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .logger import logger
 from ..models.decoder import EtudeDecoderConfig
-from ..weights import ParamTree, decoder_state_from_jax, decoder_state_to_jax
+from ..weights import ParamTree, decoder_state_from_jax, decoder_state_to_jax, rebuild_lists
 
 PARAMS_FILE = "params.npz"
 OPT_STATE_FILE = "opt_state.npz"
@@ -48,11 +52,13 @@ def set_seed(seed: int) -> None:
 
 
 def flatten_tree(tree: ParamTree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """A tree of nested dicts → {"/"-joined path: numpy array}."""
+    """A tree of nested dicts and lists → {"/"-joined path: numpy array}; a
+    list index is a path element of its decimal digits (`layers/3/q/w`)."""
     flat = {}
-    for key, value in tree.items():
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for key, value in items:
         path = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list)):
             flat.update(flatten_tree(value, path + "/"))
         else:
             flat[path] = np.asarray(value)
@@ -60,6 +66,8 @@ def flatten_tree(tree: ParamTree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]) -> ParamTree:
+    """The inverse of `flatten_tree`: a node whose keys are all decimal
+    digits becomes a list."""
     tree: ParamTree = {}
     for path, value in flat.items():
         *parents, leaf = path.split("/")
@@ -67,7 +75,7 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> ParamTree:
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = value
-    return tree
+    return rebuild_lists(tree)
 
 
 def _load_npz(path: Path) -> Dict[str, np.ndarray]:
@@ -196,10 +204,30 @@ def save_params_only(path: Union[str, Path], params: ParamTree,
     config.to_json_file(path.parent / "etude_decoder_config.json")
 
 
+def save_aux_params(path: Union[str, Path], params: ParamTree,
+                    metadata: Optional[Dict[str, Any]] = None) -> None:
+    """Params-only export of an auxiliary model (extractor, beat model,
+    separator; JAX `save_aux_params` :216): floats stored as f16, and
+    `metadata` (the training's provenance) as `metadata.json` beside `path`."""
+    path = Path(path).resolve()
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    stored = {k: v.astype(np.float16) if np.issubdtype(v.dtype, np.floating) else v
+              for k, v in flatten_tree(params).items()}
+    np.savez(path / PARAMS_FILE, **stored)
+    if metadata is not None:
+        with open(path.parent / "metadata.json", "w", encoding="utf-8") as f:
+            json.dump(metadata, f, indent=2)
+
+
 def load_params_only(path: Union[str, Path]) -> ParamTree:
     """The params tree of a params-only export (or of a training
-    checkpoint's directory), as numpy arrays."""
+    checkpoint's directory), as numpy arrays; f16 leaves come back as f32
+    (JAX `load_params_only` :195-200 promotes them likewise)."""
     path = Path(path)
     if not is_params_dir(path):
         raise FileNotFoundError(f"{path} holds no {PARAMS_FILE}")
-    return unflatten_tree(_load_npz(path / PARAMS_FILE))
+    flat = _load_npz(path / PARAMS_FILE)
+    return unflatten_tree({k: v.astype(np.float32) if v.dtype == np.float16 else v
+                           for k, v in flat.items()})

@@ -1,22 +1,24 @@
 """The weight bridge: the JAX package's parameter trees, as numpy arrays,
-into the port's modules.
+into the port's modules, and back.
 
-Decoder: the JAX tree (etude_tpu/models/decoder.py:83-141) stacks the layers
-along a leading [L] axis, stores matrices as [in, out] and keeps an untied
-`lm_head` [hidden, vocab]. `decoder_from_jax` unstacks and transposes into
-PyTorch's [out, in] `nn.Linear` weights, so both packages compute the same
-function; `decoder_to_jax` is its exact inverse. Both go through one table
-of leaves (`_decoder_leaves`), which also carries the Adam moments of a
-training checkpoint into the same tree.
+Every model has a table of leaves (`_decoder_leaves`, `_beat_leaves`,
+`_separator_leaves`, `_amt_leaves`): each PyTorch parameter name with its
+path in the JAX tree (dict keys, and list indices where the JAX tree holds a
+list of layers), its index in an `[L]`-stacked leaf, and its layout. One
+pair of functions reads every table both ways, so each `*_to_jax` is the
+exact inverse of its `*_from_jax`; the same tables carry gradients and Adam
+moments, shaped like the parameters, into the JAX tree.
 
-Beat-Transformer and separator (etude_tpu/models/beat_transformer.py:51,
-separator.py:56): matrices [in, out] → [out, in]; conv kernels HWIO →
-PyTorch's OIHW.
-
-hFT transcriber (etude_tpu/models/amt.py:64-130): the `[L]`-stacked
-`enc_layers`, `dec_layers` and `time_layers` are unstacked into per-layer
-modules, matrices [in, out] → [out, in]; the front-end conv and token
-embedding are kept as they are and folded per call, as in the JAX forward.
+- Decoder (etude_tpu/models/decoder.py:83-141): layers stacked along a
+  leading [L] axis, matrices [in, out] (PyTorch's `nn.Linear` holds
+  [out, in]), an untied `lm_head` [hidden, vocab].
+- Beat-Transformer and separator (etude_tpu/models/beat_transformer.py:51,
+  separator.py:56): lists of layer dicts; matrices [in, out]; conv kernels
+  HWIO (PyTorch: OIHW).
+- hFT transcriber (etude_tpu/models/amt.py:64-130): `[L]`-stacked
+  `enc_layers`, `dec_layers` and `time_layers` (and `dec_zero`, stacked
+  [1]); matrices [in, out]; the front-end conv and token embedding as they
+  are, folded per call as in the JAX forward.
 
 Each `init_*_params_np` is the port's own numpy copy of the JAX package's
 `init_params` (same tree, same draws in the same order), so full-width
@@ -25,7 +27,7 @@ weights can be made from a seed without JAX.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,44 +84,108 @@ def init_decoder_params_np(config: EtudeDecoderConfig, seed: int = 0) -> ParamTr
     }
 
 
+# (PyTorch name, JAX path, index in an [L]-stacked leaf or None, layout):
+# layout "same", "linear" ([in, out] ↔ [out, in]) or "conv" (HWIO ↔ OIHW).
+Leaf = Tuple[str, Tuple[Any, ...], Optional[int], str]
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _decoder_leaves(config: EtudeDecoderConfig):
-    """(PyTorch name, JAX tree path, layer index or None, transposed) for
-    every parameter of the decoder."""
-    leaves = [("word_emb.weight", ("word_emb",), None, False),
-              ("class_emb.weight", ("class_emb",), None, False)]
-    leaves += [(f"attr_emb.{name}.weight", ("attr_emb", name), None, False)
+def _to_torch_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "linear":
+        return t.T.contiguous()
+    if layout == "conv":
+        return t.permute(3, 2, 0, 1).contiguous()
+    return t
+
+
+def _to_jax_layout(t: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "linear":
+        return t.T
+    if layout == "conv":
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def state_from_tree(params: ParamTree, leaves: List[Leaf]) -> Dict[str, torch.Tensor]:
+    """A JAX tree (leaves: numpy arrays or anything `np.asarray` reads) as
+    f32 CPU tensors under the PyTorch names of `leaves`."""
+    state = {}
+    for name, path, layer, layout in leaves:
+        a = params
+        for key in path:
+            a = a[key]
+        state[name] = _to_torch_layout(_t(a if layer is None else np.asarray(a)[layer]), layout)
+    return state
+
+
+def rebuild_lists(node):
+    """Dicts keyed 0..n-1 → lists, at every depth: the list indices of a
+    JAX path, as ints or as their decimal digits (the JAX trees name no
+    dict key with digits)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: rebuild_lists(v) for k, v in node.items()}
+    if node and all(str(k).isdigit() for k in node):
+        index = {int(k): v for k, v in node.items()}
+        if sorted(index) != list(range(len(index))):
+            raise ValueError(f"list indices {sorted(index)} are not 0..{len(index) - 1}")
+        return [index[i] for i in range(len(index))]
+    return node
+
+
+def tree_from_state(state: Dict[str, torch.Tensor], leaves: List[Leaf]) -> ParamTree:
+    """Tensors under the PyTorch names of `leaves` (parameters, or anything
+    shaped like them) → the JAX tree as numpy arrays; the inverse of
+    `state_from_tree`."""
+    flat: Dict[Tuple[Any, ...], Any] = {}
+    for name, path, layer, layout in leaves:
+        a = _to_jax_layout(state[name].detach().cpu(), layout).numpy().copy()
+        if layer is None:
+            flat[path] = a
+        else:
+            flat.setdefault(path, []).append(a)
+    tree: Dict[Any, Any] = {}
+    for path, a in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(a) if isinstance(a, list) else a
+    return rebuild_lists(tree)
+
+
+def _linear(name: str, path: Tuple[Any, ...], layer: Optional[int] = None) -> List[Leaf]:
+    return [(f"{name}.weight", path + ("w",), layer, "linear"),
+            (f"{name}.bias", path + ("b",), layer, "same")]
+
+
+def _norm(name: str, path: Tuple[Any, ...], layer: Optional[int] = None) -> List[Leaf]:
+    return [(f"{name}.weight", path + ("scale",), layer, "same"),
+            (f"{name}.bias", path + ("bias",), layer, "same")]
+
+
+def _decoder_leaves(config: EtudeDecoderConfig) -> List[Leaf]:
+    leaves = [("word_emb.weight", ("word_emb",), None, "same"),
+              ("class_emb.weight", ("class_emb",), None, "same")]
+    leaves += [(f"attr_emb.{name}.weight", ("attr_emb", name), None, "same")
                for name in ATTRIBUTE_ORDER]
-    leaves += [("attr_proj.weight", ("attr_proj", "w"), None, True),
-               ("attr_proj.bias", ("attr_proj", "b"), None, False)]
+    leaves += _linear("attr_proj", ("attr_proj",))
     for l in range(config.num_hidden_layers):
         for ln in ("ln1", "ln2"):
-            leaves += [(f"layers.{l}.{ln}.weight", ("layers", ln, "scale"), l, False),
-                       (f"layers.{l}.{ln}.bias", ("layers", ln, "bias"), l, False)]
+            leaves += _norm(f"layers.{l}.{ln}", ("layers", ln), l)
         for lin in ("qkv", "attn_out", "mlp_in", "mlp_out"):
-            leaves += [(f"layers.{l}.{lin}.weight", ("layers", lin, "w"), l, True),
-                       (f"layers.{l}.{lin}.bias", ("layers", lin, "b"), l, False)]
-    leaves += [("final_ln.weight", ("final_ln", "scale"), None, False),
-               ("final_ln.bias", ("final_ln", "bias"), None, False),
-               ("lm_head.weight", ("lm_head",), None, True)]
+            leaves += _linear(f"layers.{l}.{lin}", ("layers", lin), l)
+    leaves += _norm("final_ln", ("final_ln",))
+    leaves.append(("lm_head.weight", ("lm_head",), None, "linear"))
     return leaves
 
 
 def decoder_state_from_jax(params: ParamTree,
                            config: EtudeDecoderConfig) -> Dict[str, torch.Tensor]:
-    """The JAX tree (leaves: numpy arrays or anything `np.asarray` reads) as
-    f32 CPU tensors under the decoder's PyTorch names."""
-    state = {}
-    for name, path, layer, transposed in _decoder_leaves(config):
-        a = params
-        for key in path:
-            a = a[key]
-        t = _t(a if layer is None else np.asarray(a)[layer])
-        state[name] = t.T.contiguous() if transposed else t
-    return state
+    """The JAX tree as f32 CPU tensors under the decoder's PyTorch names."""
+    return state_from_tree(params, _decoder_leaves(config))
 
 
 def decoder_state_to_jax(state: Dict[str, torch.Tensor],
@@ -127,24 +193,7 @@ def decoder_state_to_jax(state: Dict[str, torch.Tensor],
     """Tensors under the decoder's PyTorch names (parameters, or anything
     shaped like them) → the JAX tree as numpy arrays; the inverse of
     `decoder_state_from_jax`."""
-    tree: ParamTree = {}
-    stacks: Dict[tuple, list] = {}
-    for name, path, layer, transposed in _decoder_leaves(config):
-        t = state[name].detach()
-        a = (t.T if transposed else t).cpu().numpy().copy()
-        if layer is not None:
-            stacks.setdefault(path, []).append(a)
-            continue
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = a
-    for path, arrays in stacks.items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrays)
-    return tree
+    return tree_from_state(state, _decoder_leaves(config))
 
 
 @torch.no_grad()
@@ -235,19 +284,24 @@ def init_separator_params_np(config: SeparatorConfig, seed: int = 0,
             "mask_head": conv(ch, config.num_stems, norm=False)}
 
 
-def _copy_linear(lin, p):
-    lin.weight.copy_(_t(p["w"]).T)
-    lin.bias.copy_(_t(p["b"]))
-
-
-def _copy_ln(ln, p):
-    ln.weight.copy_(_t(p["scale"]))
-    ln.bias.copy_(_t(p["bias"]))
-
-
-def _copy_conv(conv, p):
-    conv.weight.copy_(_t(p["w"]).permute(3, 2, 0, 1))     # HWIO → OIHW
-    conv.bias.copy_(_t(p["b"]))
+def _beat_leaves(config: BeatTransformerConfig) -> List[Leaf]:
+    leaves: List[Leaf] = []
+    for name in ("conv1", "conv2", "conv3"):
+        leaves += [(f"{name}.weight", (name, "w"), None, "conv"),
+                   (f"{name}.bias", (name, "b"), None, "same")]
+    for i in range(config.nlayers):
+        path = ("layers", i)
+        for name in ("q", "k", "v", "ff1", "ff2"):
+            leaves += _linear(f"layers.{i}.{name}", path + (name,))
+        leaves += _norm(f"layers.{i}.ln1", path + ("ln1",))
+        leaves += _norm(f"layers.{i}.ln2", path + ("ln2",))
+        leaves.append((f"layers.{i}.er", path + ("er",), None, "same"))
+        if i in config.instr_layers:
+            for name in ("q", "k", "v", "o", "ff1", "ff2"):
+                leaves += _linear(f"layers.{i}.instr.{name}", path + ("instr", name))
+            leaves += _norm(f"layers.{i}.instr.ln1", path + ("instr", "ln1"))
+            leaves += _norm(f"layers.{i}.instr.ln2", path + ("instr", "ln2"))
+    return leaves + _linear("out", ("out",)) + _linear("out_tempo", ("out_tempo",))
 
 
 @torch.no_grad()
@@ -256,22 +310,34 @@ def beat_transformer_from_jax(params: ParamTree, config: BeatTransformerConfig,
     """Build the port's Beat-Transformer (f32 masters, eval mode) from the
     JAX tree."""
     model = BeatTransformer(config)
-    for name in ("conv1", "conv2", "conv3"):
-        _copy_conv(getattr(model, name), params[name])
-    for layer, p in zip(model.layers, params["layers"], strict=True):
-        for name in ("q", "k", "v", "ff1", "ff2"):
-            _copy_linear(getattr(layer, name), p[name])
-        _copy_ln(layer.ln1, p["ln1"])
-        _copy_ln(layer.ln2, p["ln2"])
-        layer.er.copy_(_t(p["er"]))
-        if layer.instr is not None:
-            for name in ("q", "k", "v", "o", "ff1", "ff2"):
-                _copy_linear(getattr(layer.instr, name), p["instr"][name])
-            _copy_ln(layer.instr.ln1, p["instr"]["ln1"])
-            _copy_ln(layer.instr.ln2, p["instr"]["ln2"])
-    _copy_linear(model.out, params["out"])
-    _copy_linear(model.out_tempo, params["out_tempo"])
+    model.load_state_dict(state_from_tree(params, _beat_leaves(config)))
     return model.to(device).eval().requires_grad_(False)
+
+
+def beat_transformer_to_jax(model: BeatTransformer,
+                            values: Optional[Dict[str, torch.Tensor]] = None) -> ParamTree:
+    """The model's parameters (or `values` under its parameter names:
+    gradients, Adam moments) as the JAX tree of numpy arrays: the exact
+    inverse of `beat_transformer_from_jax`."""
+    return tree_from_state(values or dict(model.named_parameters()),
+                           _beat_leaves(model.config))
+
+
+def _separator_leaves(config: SeparatorConfig) -> List[Leaf]:
+    def conv(name, path, norm=True):
+        leaves = [(f"{name}.conv.weight", path + ("w",), None, "conv"),
+                  (f"{name}.conv.bias", path + ("b",), None, "same")]
+        if norm:
+            leaves += [(f"{name}.gn_scale", path + ("gn_scale",), None, "same"),
+                       (f"{name}.gn_bias", path + ("gn_bias",), None, "same")]
+        return leaves
+
+    leaves: List[Leaf] = []
+    for i in range(config.depth):
+        leaves += conv(f"enc.{i}.down", ("enc", i, "down")) + conv(f"enc.{i}.ref", ("enc", i, "ref"))
+    for i in range(config.depth):
+        leaves += conv(f"dec.{i}.up", ("dec", i, "up")) + conv(f"dec.{i}.merge", ("dec", i, "merge"))
+    return leaves + conv("mask_head", ("mask_head",), norm=False)
 
 
 @torch.no_grad()
@@ -280,21 +346,16 @@ def separator_from_jax(params: ParamTree, config: SeparatorConfig,
     """Build the port's separator U-Net (f32 masters, eval mode) from the
     JAX tree."""
     model = Separator(config)
-
-    def copy(module, p):
-        _copy_conv(module.conv, p)
-        if module.norm:
-            module.gn_scale.copy_(_t(p["gn_scale"]))
-            module.gn_bias.copy_(_t(p["gn_bias"]))
-
-    for stage, p in zip(model.enc, params["enc"], strict=True):
-        copy(stage["down"], p["down"])
-        copy(stage["ref"], p["ref"])
-    for stage, p in zip(model.dec, params["dec"], strict=True):
-        copy(stage["up"], p["up"])
-        copy(stage["merge"], p["merge"])
-    copy(model.mask_head, params["mask_head"])
+    model.load_state_dict(state_from_tree(params, _separator_leaves(config)))
     return model.to(device).eval().requires_grad_(False)
+
+
+def separator_to_jax(model: Separator,
+                     values: Optional[Dict[str, torch.Tensor]] = None) -> ParamTree:
+    """The model's parameters (or `values` under its parameter names) as the
+    JAX tree: the exact inverse of `separator_from_jax`."""
+    return tree_from_state(values or dict(model.named_parameters()),
+                           _separator_leaves(model.config))
 
 
 def init_amt_params_np(config: AMTConfig, seed: int = 0, std: float = 0.02) -> ParamTree:
@@ -346,11 +407,41 @@ def init_amt_params_np(config: AMTConfig, seed: int = 0, std: float = 0.02) -> P
     }
 
 
-def _layer(tree, l):
-    """Layer `l` of an [L]-stacked subtree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return np.asarray(tree)[l]
+def _amt_leaves(config: AMTConfig) -> List[Leaf]:
+    def attention(name, path, layer):
+        return [leaf for n in "qkvo" for leaf in _linear(f"{name}.{n}", path + (n,), layer)]
+
+    def feed_forward(name, path, layer):
+        return (_linear(f"{name}.inp", path + ("in",), layer)
+                + _linear(f"{name}.out", path + ("out",), layer))
+
+    def norms(name, path, layer, n):
+        return [leaf for i in range(n)
+                for leaf in _norm(f"{name}.ln.{i}", path + (f"ln{i + 1}",), layer)]
+
+    leaves: List[Leaf] = [("conv_w", ("conv", "w"), None, "same"),
+                          ("conv_b", ("conv", "b"), None, "same")]
+    leaves += _linear("tok_emb", ("tok_emb",))
+    leaves += [(name, (name,), None, "same")
+               for name in ("freq_pos_emb", "note_query", "time_pos_emb")]
+    for stack, n in (("enc_layers", config.encoder_n_layer),
+                     ("time_layers", config.decoder_n_layer)):
+        for l in range(n):
+            leaves += (attention(f"{stack}.{l}.attn", (stack, "attn"), l)
+                       + feed_forward(f"{stack}.{l}.ff", (stack, "ff"), l)
+                       + norms(f"{stack}.{l}", (stack,), l, 2))
+    leaves += (attention("dec_zero.cross", ("dec_zero", "cross"), 0)
+               + feed_forward("dec_zero.ff", ("dec_zero", "ff"), 0)
+               + norms("dec_zero", ("dec_zero",), 0, 2))
+    for l in range(config.decoder_n_layer - 1):
+        leaves += (attention(f"dec_layers.{l}.self_attn", ("dec_layers", "self"), l)
+                   + attention(f"dec_layers.{l}.cross", ("dec_layers", "cross"), l)
+                   + feed_forward(f"dec_layers.{l}.ff", ("dec_layers", "ff"), l)
+                   + norms(f"dec_layers.{l}", ("dec_layers",), l, 3))
+    for heads in ("heads_freq", "heads_time"):
+        for name in ("onset", "offset", "mpe", "velocity"):
+            leaves += _linear(f"{heads}.{name}", (heads, name))
+    return leaves
 
 
 @torch.no_grad()
@@ -359,43 +450,12 @@ def amt_from_jax(params: ParamTree, config: AMTConfig, device="cpu") -> HFT:
     JAX tree. `time_pos_emb` may be longer than `config.n_frame` (a
     checkpoint trained at 512-frame segments run at fewer frames)."""
     model = HFT(config, n_time_pos=len(params["time_pos_emb"]))
-    model.conv_w.copy_(_t(params["conv"]["w"]))
-    model.conv_b.copy_(_t(params["conv"]["b"]))
-    _copy_linear(model.tok_emb, params["tok_emb"])
-    model.freq_pos_emb.copy_(_t(params["freq_pos_emb"]))
-    model.note_query.copy_(_t(params["note_query"]))
-    model.time_pos_emb.copy_(_t(params["time_pos_emb"]))
-
-    def attention(module, p):
-        for name in "qkvo":
-            _copy_linear(getattr(module, name), p[name])
-
-    def feed_forward(module, p):
-        _copy_linear(module.inp, p["in"])
-        _copy_linear(module.out, p["out"])
-
-    def norms(module, p, names):
-        for ln, name in zip(module.ln, names, strict=True):
-            _copy_ln(ln, p[name])
-
-    for stack, layers in (("enc_layers", model.enc_layers), ("time_layers", model.time_layers)):
-        for l, layer in enumerate(layers):
-            p = _layer(params[stack], l)
-            attention(layer.attn, p["attn"])
-            feed_forward(layer.ff, p["ff"])
-            norms(layer, p, ("ln1", "ln2"))
-    zero = _layer(params["dec_zero"], 0)
-    attention(model.dec_zero.cross, zero["cross"])
-    feed_forward(model.dec_zero.ff, zero["ff"])
-    norms(model.dec_zero, zero, ("ln1", "ln2"))
-    for l, layer in enumerate(model.dec_layers):
-        p = _layer(params["dec_layers"], l)
-        attention(layer.self_attn, p["self"])
-        attention(layer.cross, p["cross"])
-        feed_forward(layer.ff, p["ff"])
-        norms(layer, p, ("ln1", "ln2", "ln3"))
-    for heads, p in ((model.heads_freq, params["heads_freq"]),
-                     (model.heads_time, params["heads_time"])):
-        for name in ("onset", "offset", "mpe", "velocity"):
-            _copy_linear(getattr(heads, name), p[name])
+    model.load_state_dict(state_from_tree(params, _amt_leaves(config)))
     return model.to(device).eval().requires_grad_(False)
+
+
+def amt_to_jax(model: HFT, values: Optional[Dict[str, torch.Tensor]] = None) -> ParamTree:
+    """The model's parameters (or `values` under its parameter names) as the
+    JAX tree: the exact inverse of `amt_from_jax`."""
+    return tree_from_state(values or dict(model.named_parameters()),
+                           _amt_leaves(model.config))

@@ -9,8 +9,16 @@ precedent of tests/test_beat.py). In bf16 the plain version rounds once, at
 its output, so it must equal its own f32 result rounded to bf16. On the
 card the kernel sums in another order than the plain version, which can
 flip an output rounding: two bf16 ulps of the largest |o|.
+
+The gradient: on the CPU autograd differentiates the plain version, held
+against jax.vjp of the JAX `dilated_attention` in f32 to 1e-5. On the card
+the backward kernel K2b is held against that autograd in f32 from the same
+bf16 inputs: dq, dk and dv within two bf16 ulps of each tensor's largest
+|value| (they are rounded once to bf16), der within 1e-3 of its largest
+|value| (f32 sums over B·T in another order).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +32,8 @@ from etude_tpu.ops.dilated_attention import (
 )
 from etude_tpu_torch.ops.dilated_attention import (
     dilated_attention,
+    dilated_attention_backward,
+    dilated_attention_backward_plain,
     dilated_attention_plain,
     head_offsets,
 )
@@ -154,3 +164,115 @@ def test_kernel_matches_plain_on_card(T, dilation, head7_bug):
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref, rtol=0,
                                atol=2 * 2.0 ** (np.floor(np.log2(top)) - 7))
+
+
+def _grads_port(q, k, v, er, g, dilation, head7_bug):
+    inputs = [torch.tensor(a, requires_grad=True) for a in (q, k, v, er)]
+    out = dilated_attention(*inputs, dilation, head7_bug=head7_bug)
+    return [t.numpy() for t in torch.autograd.grad(out, inputs, torch.tensor(g))]
+
+
+def _grads_jax(q, k, v, er, g, dilation, head7_bug):
+    def f(*args):
+        return jax_dilated(*args, dilation, head7_bug=head7_bug)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v, er)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("head7_bug", [False, True])
+@pytest.mark.parametrize("dilation", range(1, 9))
+def test_gradient_matches_jax(dilation, head7_bug):
+    """dq, dk, dv and der of the port's CPU path (autograd of the plain
+    version) against jax.vjp of the JAX function, f32, T not a multiple of
+    any dilation above 1."""
+    q, k, v, er = _inputs(2, 8, 45, 32, seed=300 + dilation)
+    g = np.random.default_rng(dilation).normal(size=q.shape).astype(np.float32)
+    port = _grads_port(q, k, v, er, g, dilation, head7_bug)
+    ref = _grads_jax(q, k, v, er, g, dilation, head7_bug)
+    for name, a, b in zip(("dq", "dk", "dv", "der"), port, ref):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+    if head7_bug:
+        # Head 7's keys serve no query; head 6's serve heads 6 and 7.
+        assert not port[1][:, 7].any()
+        plain = _grads_port(q, k, v, er, g, dilation, False)[1]
+        assert np.abs(port[1][:, 6] - plain[:, 6]).max() > 1e-3
+
+
+def test_backward_plain_is_autograd_of_the_plain_version():
+    q, k, v, er = (torch.tensor(a).bfloat16() for a in _inputs(1, 8, 40, 32, seed=5))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0)).bfloat16()
+    got = dilated_attention_backward_plain(q, k, v, er, g, 4, head7_bug=True)
+    inputs = [t.float().requires_grad_(True) for t in (q, k, v, er)]
+    out = dilated_attention_plain(*inputs, 4, head7_bug=True)
+    for a, b in zip(got, torch.autograd.grad(out, inputs, g.float())):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    """K2b's wrapper is for CUDA tensors; on the CPU autograd differentiates
+    the plain version, and calling the kernel's wrapper raises."""
+    q, k, v, er = (torch.tensor(a).bfloat16() for a in _inputs(1, 8, 16, 32, seed=6))
+    before = dilated_attention_backward.launches
+    with pytest.raises((RuntimeError, ValueError)):
+        dilated_attention_backward(q, k, v, er, torch.zeros_like(q), 1)
+    assert dilated_attention_backward.launches == before
+
+
+def _ulps2(ref):
+    """Two bf16 ulps of the largest |value|; 0 for an all-zero reference (at
+    T <= dilation every query sees only itself: p = 1, so ds, dq and dk are 0)."""
+    top = ref.abs().max().item()
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+# The training shape (B = 40 rows: 8 clips x 5 stems, T = 512) at every
+# dilation, the serving bucket at three, head7_bug both ways.
+BWD_CARD_CASES = ([(40, 512, 2 ** i, False) for i in range(9)]
+                  + [(5, 12288, d, False) for d in (1, 16, 256)]
+                  + [(40, 512, d, True) for d in (1, 8, 256)]
+                  + [(2, 77, 128, True), (3, 200, 3, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,dilation,head7_bug", BWD_CARD_CASES)
+def test_backward_kernel_matches_plain_on_card(B, T, dilation, head7_bug):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v, er = (torch.tensor(a).bfloat16().cuda()
+                   for a in _inputs(B, 8, T, 32, seed=T + dilation))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(dilation)).bfloat16()
+    before = dilated_attention_backward.launches
+    got = dilated_attention_backward(q, k, v, er, g, dilation, head7_bug=head7_bug)
+    again = dilated_attention_backward(q, k, v, er, g, dilation, head7_bug=head7_bug)
+    torch.cuda.synchronize()
+    assert dilated_attention_backward.launches == before + 4
+    ref = dilated_attention_backward_plain(q, k, v, er, g, dilation, head7_bug=head7_bug)
+    for name, a, b, r in zip(("dq", "dk", "dv", "der"), got, again, ref):
+        assert torch.equal(a, b), name
+        assert torch.isfinite(a.float()).all(), name
+        tol = _ulps2(r) if name != "der" else 1e-3 * r.abs().max().item()
+        torch.testing.assert_close(a.float(), r, rtol=0, atol=tol, msg=name)
+    if head7_bug:
+        assert not got[1][:, 7].any()
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_goes_through_the_backward_kernel():
+    """The card's output carries a gradient: backward() through
+    `dilated_attention` launches K2b (its two kernels) once and fills every
+    input's grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v = (torch.tensor(a).bfloat16().cuda().requires_grad_(True)
+               for a in _inputs(2, 8, 300, 32, seed=8)[:3])
+    er32 = torch.zeros(8, 32, 5, device="cuda", requires_grad=True)
+    before = dilated_attention_backward.launches
+    out = dilated_attention(q, k, v, er32.bfloat16(), 4)
+    out.float().square().sum().backward()
+    assert dilated_attention_backward.launches == before + 2
+    for t in (q, k, v, er32):
+        assert t.grad is not None and torch.isfinite(t.grad.float()).all()
+    assert er32.grad.dtype == torch.float32 and er32.grad.abs().max() > 0
