@@ -80,10 +80,32 @@ Phases, each announced with a flushed line when it starts and ends:
                     against the CPU (labels shifted), and `--input` on a
                     30 s click track served from the phase's own exports
                     (loaded, no random weights; 9 K2 launches)
+ 11. options        the serving CLI's other options, each check beside a
+                    control it must catch: `--decode-only --engine rebuild`
+                    on the cli phase's work dir (K1 launches = the S = 1
+                    steps counted from outside the engine x 8 layers; the
+                    MIDI parses); the rebuild and stream engines timed on
+                    16 streams x 8 corpus bars (64-token cap), bar 0's greedy
+                    agreement reported, K1 timed at the rebuild cache
+                    lengths; the rebuild path's teacher-forced logits card
+                    vs CPU (controls: one layer's attention output zeroed);
+                    `--attrs-prior` (the engine's per-bar bins equal the
+                    CPU's predictor's; logits under them card vs CPU, a
+                    constant combo the control); the int8 KV cache against
+                    bf16 on 16 streams x 24 bars (64-token cap): tok/s,
+                    cache bytes, int8 logits card vs CPU within
+                    QUANT_LOGIT_ATOL; the separator bypass card vs CPU
+                    within BYPASS_DB_ATOL (control: a frame late) and
+                    `detect` on its saved `.npy` (the array's beats, the
+                    file removed); synthetic reference `.pth`/`.pkl`
+                    weights at the published widths loaded through
+                    `paths.*`: decoder logits, hFT heads (`.pkl` = `.pth`),
+                    and the Beat-Transformer with 9 K2 launches with head
+                    7's keys from head 6 (control: without the compat)
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline, cli, train and aux_train runs, each
-counted from 0 (K2b's: the aux_train beat run's), then
+serving, structuralize, pipeline, cli, train, aux_train and options runs,
+each counted from 0 (K2b's: the aux_train beat run's), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
 CUDA, and a directory that holds this script without the package. It
@@ -100,6 +122,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
@@ -123,6 +146,15 @@ SEP_DB_ATOL = 0.1
 # by 3.4e-3, while zeroing one attention layer's output moves them by
 # 1.2e-2 (a decoder self-attention) to 0.27 (the first cross-attention).
 HFT_ATOL = 6e-3
+# Card vs CPU separator-bypass features (no U-Net: the mix's f32 DFT and mel
+# on both), in dB.
+BYPASS_DB_ATOL = 1e-3
+# Card vs CPU logits of the int8-cache chunks (both plain PyTorch with exact
+# integer dots; q, K, V and the probabilities quantized from bf16 values that
+# differ by rounding between the devices). Measured first, on an H100 with
+# this limit unset: 0.0152 (the bf16 chunks: 0.0124); zeroing layer 0's
+# attention output moves them by 1.18. Twice the reading.
+QUANT_LOGIT_ATOL = 3e-2
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
 TRAIN_STEPS, TRAIN_SAVE_EVERY = 40, 20
@@ -394,23 +426,25 @@ def profile_window(model, config, vocab, bars, attrs):
             f"{e.key[:90]}")
 
 
-def chunk_parity(model, config, bars, attr):
-    """Seed, condition and S = 1 chunks at full width: card (kernel) vs CPU
-    (plain version), same weights and inputs."""
-    import copy
-
+def chunk_logits(m, config, bars, attr, device, quant=False):
+    """Seed, condition and S = 1 chunks of the stream engine on one device
+    (teacher-forced: Bar_BOS, then a corpus bar's tokens, so a near-tie on
+    one device cannot steer two runs apart); each chunk's logits, f32 on
+    the host. `quant` runs them on an int8 cache."""
     import numpy as np
     import torch
     from etude_tpu_torch.data.tokenizer import SRC_CLASS_ID, TGT_CLASS_ID
     from etude_tpu_torch.models.decoder import ATTRIBUTE_ORDER
     from etude_tpu_torch.models.generate_stream import init_stream_cache, stream_chunk
 
-    def run(m, device):
-        B, hist, X = 2, 64, 64
-        cache = init_stream_cache(config, B, hist + X + 1 + 8, device=device)
-        zero = torch.zeros(B, dtype=torch.long, device=device)
-        def t(a):
-            return torch.tensor(np.asarray(a), dtype=torch.long, device=device)
+    B, hist, X = 2, 64, 64
+    cache = init_stream_cache(config, B, hist + X + 1 + 8, device=device, quant=quant)
+    zero = torch.zeros(B, dtype=torch.long, device=device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.long, device=device)
+
+    with torch.no_grad():
         seed_ids = t([[bars[0][0], bars[0][-1]] * 8] * B)
         seed_cls = t([[SRC_CLASS_ID] * 2 + [TGT_CLASS_ID] * 2] * 4 * B).reshape(B, 16)
         ones = {n: torch.ones_like(seed_ids) for n in ATTRIBUTE_ORDER}
@@ -424,19 +458,22 @@ def chunk_parity(model, config, bars, attr):
                                  zero + 16, zero, hist, valid_len=t(lens))[0])
         pos = zero + 16 + t(lens)
         attr1 = {n: a[:, :1] for n, a in attrs.items()}
-        # Teacher-forced (Bar_BOS, then a corpus bar's tokens), so a near-tie
-        # on one device cannot steer the two runs apart.
         for step, tok in enumerate([bars[0][0]] + bars[3][1:4]):
             outs.append(stream_chunk(m, cache, t([[tok]] * B), t([[TGT_CLASS_ID]] * B),
                                      attr1, pos + step, zero, hist + X + step)[0])
-        return [o.float().cpu() for o in outs]
+    return [o.float().cpu() for o in outs]
 
-    with torch.no_grad():
-        card = run(model, "cuda")
-        host = run(copy.deepcopy(model).cpu(), "cpu")
+
+def chunk_parity(model, config, bars, attr):
+    """Seed, condition and S = 1 chunks at full width: card (kernel) vs CPU
+    (plain version), same weights and inputs."""
+    import copy
+
+    card = chunk_logits(model, config, bars, attr, "cuda")
+    host = chunk_logits(copy.deepcopy(model).cpu(), config, bars, attr, "cpu")
     worst = 0.0
     for a, b in zip(card, host):
-        if not torch.isfinite(a).all():
+        if not bool(a.isfinite().all()):
             raise RuntimeError("non-finite logits on the card")
         excess = ((a - b).abs() - (LOGIT_ATOL + LOGIT_RTOL * b.abs())).max().item()
         worst = max(worst, (a - b).abs().max().item())
@@ -752,12 +789,12 @@ def frontend_ab(extractor) -> None:
         f"F.conv2d+copy {time_ms(conv, flush=flush):.4f} ms, max|diff| {err:.3g}")
 
 
-def extract_parity(root: Path) -> None:
+def extract_parity(root: Path, model_path: Optional[Path] = None) -> None:
     """The card's bf16 hFT heads against the port's CPU f32 path on the first
-    segment of a 12 s click track, same seeded random weights, beside
-    controls it must catch: one attention layer's output zeroed at a time on
-    the card. The card's f32 log-mel (TF32 off) against the CPU's is
-    reported."""
+    segment of a 12 s click track, same weights (`model_path`, else seeded
+    random ones), beside controls it must catch: one attention layer's
+    output zeroed at a time on the card. The card's f32 log-mel (TF32 off)
+    against the CPU's is reported."""
     import numpy as np
     import torch
     import etude_tpu_torch.models.amt as amt
@@ -766,8 +803,8 @@ def extract_parity(root: Path) -> None:
 
     wav = root / "click_12s.wav"
     write_click_wav(wav, 12.0, seed=1)
-    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=root / "none.ckpt",
-                                     device=device, allow_random_weights=True)
+    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=model_path or root / "none.ckpt",
+                                     device=device, allow_random_weights=model_path is None)
             for device in ("cpu", "cuda")}
     feature = make["cpu"]._wav2feature(wav)
     mel_gap = (make["cuda"]._wav2feature(wav).cpu() - feature).abs().max().item()
@@ -1614,6 +1651,483 @@ def aux_train_phase(root: Path, flush):
     return k2, k2b, rows
 
 
+# --------------------------------------------------------------- options
+def options_settings(cli_root: Path) -> Path:
+    """The cli phase's settings with the attribute prior's directory named
+    (the committed `checkpoints/attr_prior` beside this script)."""
+    settings = json.loads((cli_root / "settings.json").read_text())
+    settings["paths"]["checkpoints_dir"] = str(ROOT / "checkpoints")
+    path = cli_root / "options.json"
+    path.write_text(json.dumps(settings))
+    return path
+
+
+class _StepCounter:
+    """Counts the S = 1 forwards of the rebuild engine by wrapping
+    `models.generate.forward_with_cache`, independently of the engine's own
+    accounting; restores it on exit."""
+
+    def __enter__(self):
+        import etude_tpu_torch.models.generate as generate
+
+        self.module, self.real, self.steps = generate, generate.forward_with_cache, 0
+
+        def counted(model, cache, input_ids, *args, **kw):
+            self.steps += int(input_ids.shape[1] == 1)
+            return self.real(model, cache, input_ids, *args, **kw)
+
+        generate.forward_with_cache = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.forward_with_cache = self.real
+
+
+def teacher_forced_logits(model, config, vocab, bars, attrs, device):
+    """The rebuild path on one device: two left-padded prompts (bars[2]
+    after the history pair (bars[0], bars[1]), and bars[3] alone)
+    prefilled, then 8 S = 1 steps teacher-forced with bars[4]'s tokens (so a
+    near-tie cannot steer the devices apart); every logits vector, f32 on
+    the host."""
+    import numpy as np
+    import torch
+    from etude_tpu_torch.data.tokenizer import TGT_CLASS_ID
+    from etude_tpu_torch.models.decoder import forward_with_cache, init_cache
+    from etude_tpu_torch.models.generate import _ATTR_KEY_TO_NAME, GenerationEngine
+
+    engine = GenerationEngine(config, vocab.bar_bos_id, vocab.bar_eos_id, vocab.pad_id,
+                              prompt_buckets=(64, 128, 256, 512), max_bar_token_limit=64)
+    prompts = [engine.build_prompt([(bars[0], bars[1], attrs)], bars[2], attrs),
+               engine.build_prompt([], bars[3], attrs)]
+    ids, cls, attrs_np, visible_from, P = engine._pack_prompts(prompts)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.long, device=device)
+
+    step_attrs = {_ATTR_KEY_TO_NAME[k]: t([[v], [v]]) for k, v in attrs.items()}
+    positions = np.maximum(np.arange(P)[None] - visible_from[:, None], 0)
+    with torch.no_grad():
+        cache = init_cache(config, 2, P + 8, device)
+        logits, _ = forward_with_cache(
+            model, cache, t(ids), t(cls),
+            {_ATTR_KEY_TO_NAME[k]: t(v) for k, v in attrs_np.items()}, 0, t(positions),
+            t(visible_from))
+        outs = [logits[:, -1]]
+        for step, tok in enumerate(bars[4][1:9]):
+            logits, _ = forward_with_cache(
+                model, cache, t([[tok], [tok]]), t([[TGT_CLASS_ID]] * 2), step_attrs, P + step,
+                t((P + step - visible_from)[:, None]), t(visible_from))
+            outs.append(logits[:, 0])
+    return torch.stack(outs).float().cpu()
+
+
+def logit_excess(a, b) -> float:
+    """How far card logits `a` lie outside LOGIT_ATOL + LOGIT_RTOL x |b| of
+    the CPU's `b` (positive: outside)."""
+    return ((a - b).abs() - (LOGIT_ATOL + LOGIT_RTOL * b.abs())).max().item()
+
+
+def zeroed_attention(model, layer):
+    """A context that zeroes one decoder layer's attention output (its
+    out-projection's weight and bias) and restores it."""
+    @contextlib.contextmanager
+    def ctx():
+        proj = model.layers[layer].attn_out
+        saved = proj.weight.clone(), proj.bias.clone()
+        proj.weight.zero_()
+        proj.bias.zero_()
+        try:
+            yield
+        finally:
+            proj.weight.copy_(saved[0])
+            proj.bias.copy_(saved[1])
+    return ctx()
+
+
+def decoder_parity(name, card, host_model, config, vocab, bars, attrs):
+    """`teacher_forced_logits` on the card (K1 on every S = 1 step) and on a
+    CPU copy (the plain version), within LOGIT_ATOL; controls: one layer's
+    attention output zeroed on the card, each layer in turn."""
+    host = teacher_forced_logits(host_model, config, vocab, bars, attrs, "cpu")
+    out = teacher_forced_logits(card, config, vocab, bars, attrs, "cuda")
+    if not bool(out.isfinite().all()):
+        raise RuntimeError(f"{name}: non-finite logits on the card")
+    gap, excess = (out - host).abs().max().item(), logit_excess(out, host)
+    controls = []
+    for layer in range(config.num_hidden_layers):
+        with zeroed_attention(card, layer):
+            got = teacher_forced_logits(card, config, vocab, bars, attrs, "cuda")
+        controls.append(((got - host).abs().max().item(), logit_excess(got, host)))
+    say(f"  {name}: teacher-forced logits (prefill + 8 S=1 steps, B=2), card vs CPU max|diff| "
+        f"{gap:.3g} (atol {LOGIT_ATOL}, rtol {LOGIT_RTOL}); controls, one layer's attention "
+        f"output zeroed: {' '.join(f'{c:.3g}' for c, _ in controls)}")
+    if excess > 0:
+        raise RuntimeError(f"{name}: card vs CPU logits differ by {gap:.3g}")
+    if min(e for _, e in controls) <= 0:
+        raise RuntimeError(f"{name}: the logit check missed a control")
+
+
+def engine_run(engine, model, bars, attrs, **kw):
+    """One timed greedy run of an engine, a stream per entry of `attrs`;
+    (outputs, tokens, seconds, K1 launches)."""
+    import torch
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = engine.generate_batch(model, [bars] * len(attrs), attrs, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return outs, sum(len(b) - 1 for s in outs for b in s), seconds, decode_attention.launches
+
+
+def options_rebuild(cli_root, model, host_model, config, vocab, bars, attrs, flush):
+    """`--engine rebuild` through the CLI on the cli phase's work dir (K1
+    launches = S = 1 steps x layers, the MIDI parses); the rebuild and
+    stream engines timed on 16 streams x 8 corpus bars (bars capped at 64
+    tokens), bar 0's greedy agreement between them reported; K1 timed at the
+    rebuild cache length; card vs CPU teacher-forced logits. Returns the K1
+    launches of the driven runs."""
+    from etude_tpu_torch import infer
+    from etude_tpu_torch.models.generate import GenerationEngine
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    decode_attention.launches = 0
+    with _StepCounter() as counter:
+        t = time.perf_counter()
+        rc = infer.main(["--config", str(options_settings(cli_root)), "--decode-only",
+                         "--engine", "rebuild", "--allow-random-weights", "--output_name",
+                         "rebuild", "--seed", "7"])
+        wall = time.perf_counter() - t
+    cli_launches = decode_attention.launches
+    out = cli_root / "outputs" / "infer" / "rebuild.mid"
+    if rc != 0 or not out.exists():
+        raise RuntimeError(f"infer --engine rebuild exited {rc}; {out} exists: {out.exists()}")
+    notes = read_midi_notes(out)
+    expected = counter.steps * config.num_hidden_layers
+    say(f"  --engine rebuild CLI: {wall:.2f} s wall; {out.name} {out.stat().st_size} bytes, "
+        f"{len(notes)} notes; {counter.steps} S=1 steps, K1 launches {cli_launches} "
+        f"(expected {expected})")
+    if cli_launches != expected or cli_launches == 0:
+        raise RuntimeError(f"decode_attention launched {cli_launches} times in the rebuild "
+                           f"run, expected {expected}")
+
+    kw = dict(bar_bos_id=vocab.bar_bos_id, bar_eos_id=vocab.bar_eos_id, pad_id=vocab.pad_id,
+              max_bar_token_limit=64)
+    rebuild = GenerationEngine(config, prompt_buckets=(128, 256, 512, 1024), **kw)
+    stream = StreamingGenerationEngine(config, **kw)
+    window = (bars[:8], [a[:8] for a in attrs])
+    launches = cli_launches
+    results = {}
+    for name, engine in (("stream", stream), ("rebuild", rebuild)):
+        engine_run(engine, model, window[0], window[1][:2])  # warm-up
+        outs, tokens, seconds, n = engine_run(engine, model, *window)
+        check_streams(outs, 8, vocab.bar_bos_id, vocab.bar_eos_id, config.vocab_size, 64)
+        launches += n
+        results[name] = outs
+        say(f"  {name} engine, {len(attrs)} streams x 8 bars (64-token cap), greedy: {tokens} "
+            f"tokens in {seconds:.2f} s = {tokens / seconds:.1f} tok/s, "
+            f"{1e3 * seconds / 8:.1f} ms per bar; K1 launches {n}")
+    same = sum(a[0] == b[0] for a, b in zip(results["stream"], results["rebuild"]))
+    prefix = [next((i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y),
+                   min(len(a[0]), len(b[0])))
+              for a, b in zip(results["stream"], results["rebuild"])]
+    say(f"  bar 0, rebuild vs stream engine (greedy, reported): {same} of {len(attrs)} streams "
+        f"identical; common prefix {min(prefix)}-{max(prefix)} tokens")
+    prompt_cap = config.max_position_embeddings - 64
+    for C in sorted({prompt_cap + 64, 128 + 64}):
+        check_kernel(16, C, 70 + C, flush)
+    decoder_parity("rebuild path", model, host_model, config, vocab, bars,
+                   {"polyphony_bin": 1, "rhythm_intensity_bin": 1, "sustain_bin": 1,
+                    "pitch_overlap_bin": 2})
+    return launches
+
+
+def options_attrs_prior(cli_root, model, host_model, config, vocab):
+    """`--attrs-prior` through the CLI: the per-bar bins the engine gets
+    equal the CPU's predictor's on the same bars, exactly; the card's
+    Bar_BOS logits under them match the CPU's, and a constant combo changes
+    them (the control). Returns the run's K1 launches."""
+    import torch
+    from etude_tpu_torch import infer
+    from etude_tpu_torch.models.attr_prior import AttrPrior
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+
+    seen = {}
+    real = StreamingGenerationEngine.generate
+
+    def spy(self, m, bars, attrs, **kw):
+        seen["bars"], seen["attrs"] = bars, attrs
+        return real(self, m, bars, attrs, **kw)
+
+    StreamingGenerationEngine.generate = spy
+    decode_attention.launches = 0
+    try:
+        rc = infer.main(["--config", str(options_settings(cli_root)), "--decode-only",
+                         "--attrs-prior", "--allow-random-weights", "--output_name", "prior",
+                         "--seed", "7"])
+    finally:
+        StreamingGenerationEngine.generate = real
+    launches = decode_attention.launches
+    if rc != 0 or "attrs" not in seen:
+        raise RuntimeError(f"infer --attrs-prior exited {rc}")
+    want = AttrPrior.load(ROOT / "checkpoints" / "attr_prior").predict_bins(
+        seen["bars"], vocab, seed=7)
+    if seen["attrs"] != want:
+        raise RuntimeError("the per-bar bins of the CLI run differ from the CPU's")
+    combos = [tuple(sorted(a.items())) for a in want]
+    constant = {"polyphony_bin": 1, "rhythm_intensity_bin": 1, "sustain_bin": 1,
+                "pitch_overlap_bin": 2}
+    i = next((i for i, a in enumerate(want) if a != constant), 0)
+    bars = seen["bars"]
+    window = [bars[max(i - 2, 0)], bars[max(i - 1, 0)], bars[i], bars[i], bars[i]]
+    card = teacher_forced_logits(model, config, vocab, window, want[i], "cuda")
+    host = teacher_forced_logits(host_model, config, vocab, window, want[i], "cpu")
+    control = teacher_forced_logits(model, config, vocab, window, constant, "cuda")
+    gap, excess = (card - host).abs().max().item(), logit_excess(card, host)
+    moved, moved_excess = (control - host).abs().max().item(), logit_excess(control, host)
+    say(f"  --attrs-prior CLI: {len(want)} bars, {len(set(combos))} distinct bin combos, equal "
+        f"to the CPU's predictor; K1 launches {launches}. Bar {i} ({want[i]}): card vs CPU "
+        f"logits max|diff| {gap:.3g}; control, constant combo {constant}: {moved:.3g}")
+    if excess > 0:
+        raise RuntimeError(f"attrs-prior logits: card vs CPU differ by {gap:.3g}")
+    if moved_excess <= 0:
+        raise RuntimeError(f"the attrs-prior check missed its control ({moved:.3g})")
+    if launches == 0 or launches % config.num_hidden_layers:
+        raise RuntimeError(f"decode_attention launched {launches} times, not 8 per S=1 chunk")
+    return launches
+
+
+def reference_files(root: Path, config):
+    """Synthetic reference checkpoints at the published widths, drawn from
+    seed 1 and written as a user holds them: the decoder's `.pth`
+    ({"model_state_dict": ...}), the hFT's `.pth` and whole-model `.pkl`,
+    the Beat-Transformer's `.pth` ({"state_dict": ...}) with its dilated
+    layers' query and key weights x8, so that each head's softmax over its
+    5 keys is peaked and head 7's keys matter. Returns the settings that
+    name them, as a user's would."""
+    import torch
+    from etude_tpu_torch.config import ExtractorConfig, load_config
+    from etude_tpu_torch.data.extractor import amt_config_from
+    from etude_tpu_torch.models.beat_transformer import BeatTransformerConfig
+    from etude_tpu_torch.tools import reference_state as rs
+    from etude_tpu_torch.weights import (init_amt_params_np, init_beat_params_np,
+                                         init_decoder_params_np)
+
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state_dict": rs.decoder_state_dict(
+        init_decoder_params_np(config, seed=1), config)}, root / "decoder.pth")
+    amt_config = amt_config_from(ExtractorConfig())
+    hft = rs.amt_state_dict(init_amt_params_np(amt_config, seed=1), amt_config)
+    torch.save(hft, root / "hft.pth")
+    rs.save_whole_model(hft, root / "hft.pkl")
+    beat_config = BeatTransformerConfig()
+    beat = init_beat_params_np(beat_config, seed=1)
+    for layer in beat["layers"]:
+        layer["q"]["w"] *= 8.0
+        layer["k"]["w"] *= 8.0
+    torch.save({"state_dict": rs.beat_state_dict(beat, beat_config)}, root / "beat.pth")
+    return load_config(None, {"paths": {
+        "decoder_model": str(root / "decoder.pth"),
+        "decoder_config": str(ROOT / "checkpoints/decoder/etude_decoder_config.json"),
+        "extractor_model": str(root / "hft.pth"),
+        "beat_detector_model": str(root / "beat.pth"),
+    }})
+
+
+def options_reference(root: Path, vocab, bars, features):
+    """Reference weights through the loaders as a user names them: the
+    decoder on the rebuild path (card vs CPU within LOGIT_ATOL, beside the
+    zeroed-attention controls), the hFT from `.pth` and `.pkl` (equal
+    weights; card bf16 heads vs CPU f32 within HFT_ATOL, beside its
+    controls), the Beat-Transformer with head-7 compat (9 K2 launches, each
+    with head 7's keys from head 6; card bf16 activations vs CPU f32 within
+    ACT_ATOL; control: the same weights without the compat). Returns the K2
+    launches."""
+    import numpy as np
+    import torch
+    import etude_tpu_torch.models.beat_transformer as beat_transformer
+    from etude_tpu_torch.data.beat_detector import BeatDetector
+    from etude_tpu_torch.data.extractor import AMTAPC_Extractor
+    from etude_tpu_torch.ops.dilated_attention import dilated_attention
+    from etude_tpu_torch.utils.model_loader import load_etude_decoder
+    from etude_tpu_torch.utils.torch_port import load_torch_beat_checkpoint
+
+    from etude_tpu_torch.models.decoder import EtudeDecoderConfig
+
+    config = EtudeDecoderConfig.from_json_file(
+        ROOT / "checkpoints/decoder/etude_decoder_config.json")
+    settings = reference_files(root, config)
+    paths = settings.paths
+    model, config = load_etude_decoder(paths.decoder_config, paths.decoder_model, "cuda")
+    host_model, _ = load_etude_decoder(paths.decoder_config, paths.decoder_model, "cpu")
+    decoder_parity("reference decoder .pth", model, host_model, config, vocab, bars,
+                   {"polyphony_bin": 0, "rhythm_intensity_bin": 2, "sustain_bin": 1,
+                    "pitch_overlap_bin": 2})
+    del model, host_model
+
+    pkl = AMTAPC_Extractor(settings.extractor, model_path=root / "hft.pkl", device="cpu")
+    pth = AMTAPC_Extractor(settings.extractor, model_path=paths.extractor_model, device="cpu")
+    for (name, a), b in zip(pkl.model.state_dict().items(), pth.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"hFT .pkl and .pth weights differ at {name}")
+    say("  reference hFT: .pkl (a pickled whole model of unknown classes) and .pth load "
+        "the same weights")
+    extract_parity(root, model_path=paths.extractor_model)
+
+    real = beat_transformer.dilated_attention
+    flags = []
+
+    def recorded(q, k, v, er, dilation, head7_bug=False):
+        flags.append(head7_bug)
+        return real(q, k, v, er, dilation, head7_bug=head7_bug)
+
+    card = BeatDetector(settings.beat_detector, model_path=paths.beat_detector_model,
+                        device="cuda")
+    host = BeatDetector(settings.beat_detector, model_path=paths.beat_detector_model,
+                        device="cpu")
+    if not (card.model.config.compat_head7_bug and host.model.config.compat_head7_bug):
+        raise RuntimeError("reference beat weights loaded without the head-7 compat")
+    ref = host.activations(features)
+    dilated_attention.launches = 0
+    beat_transformer.dilated_attention = recorded
+    try:
+        out = card.activations(features)
+    finally:
+        beat_transformer.dilated_attention = real
+    launches = dilated_attention.launches
+    plain = BeatDetector(settings.beat_detector, device="cuda", params=load_torch_beat_checkpoint(
+        paths.beat_detector_model, host.model_config))
+    control = float(np.abs(plain.activations(features) - ref).max())
+    err = float(np.abs(out - ref).max())
+    say(f"  reference Beat-Transformer .pth: K2 launches {launches} (expected 9), head7_bug "
+        f"{flags}; activations [{ref.shape[0]}, 2], card bf16 vs CPU f32 max|diff| {err:.3g} "
+        f"(atol {ACT_ATOL}); control, the same weights without the compat: {control:.3g}")
+    if launches != 9 or flags != [True] * 9:
+        raise RuntimeError(f"K2 launched {launches} times with head7_bug {flags}")
+    if not np.isfinite(out).all() or err > ACT_ATOL:
+        raise RuntimeError(f"card vs CPU reference beat activations differ by {err:.3g}")
+    if control <= ACT_ATOL:
+        raise RuntimeError(f"the head-7 check missed its control ({control:.3g})")
+    return launches
+
+
+def quant_parity(model, host_model, config, bars, attr):
+    """`chunk_parity`'s chunks on int8 caches, card vs CPU (both plain
+    PyTorch with exact integer dots): within QUANT_LOGIT_ATOL; control: one
+    layer's attention output zeroed on the card."""
+    import torch
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+
+    before = decode_attention.launches
+    card = chunk_logits(model, config, bars, attr, "cuda", quant=True)
+    host = chunk_logits(host_model, config, bars, attr, "cpu", quant=True)
+    with zeroed_attention(model, 0):
+        control = chunk_logits(model, config, bars, attr, "cuda", quant=True)
+    if decode_attention.launches != before:
+        raise RuntimeError("the int8 path launched the decode-attention kernel")
+    gap = max((a - b).abs().max().item() for a, b in zip(card, host))
+    moved = max((a - b).abs().max().item() for a, b in zip(control, host))
+    say(f"  int8 cache chunks, card vs CPU logits: max|diff| {gap:.3g} (atol "
+        f"{QUANT_LOGIT_ATOL}); control, layer 0's attention output zeroed: {moved:.3g}")
+    if not all(bool(a.isfinite().all()) for a in card) or gap > QUANT_LOGIT_ATOL:
+        raise RuntimeError(f"int8 card vs CPU logits differ by {gap:.3g}")
+    if moved <= QUANT_LOGIT_ATOL:
+        raise RuntimeError(f"the int8 logit check missed its control ({moved:.3g})")
+
+
+def options_kv_quant(model, host_model, config, vocab, bars, attrs):
+    """16 streams x 24 corpus bars (bars capped at 64 tokens), greedy, with
+    the bf16 cache (K1) and the int8 cache (no kernel): tok/s and cache
+    bytes of each; then int8 card vs CPU logits. Returns the bf16 run's K1
+    launches."""
+    from etude_tpu_torch.models.generate_stream import (StreamingGenerationEngine,
+                                                        init_stream_cache)
+
+    kw = dict(bar_bos_id=vocab.bar_bos_id, bar_eos_id=vocab.bar_eos_id, pad_id=vocab.pad_id,
+              max_bar_token_limit=64)
+    engines = {q: StreamingGenerationEngine(config, kv_quant=q, **kw) for q in (False, True)}
+    C = engines[False].pack([bars] * len(attrs), attrs)["cache_len"]
+    launches = 0
+    for quant in (False, True):
+        engine = engines[quant]
+        engine.stats["single_token_chunks"] = 0
+        outs, tokens, seconds, n = engine_run(engine, model, bars, attrs)
+        check_streams(outs, len(bars), vocab.bar_bos_id, vocab.bar_eos_id, config.vocab_size, 64)
+        expected = 0 if quant else engine.stats["single_token_chunks"] * config.num_hidden_layers
+        if n != expected:
+            raise RuntimeError(f"kv_quant={quant}: K1 launched {n} times, expected {expected}")
+        launches += n
+        cache = init_stream_cache(config, len(attrs), C, device="meta", quant=quant)
+        kv_bytes = sum(t.numel() * t.element_size() for k, t in cache.items() if k != "slot_pos")
+        say(f"  {'int8' if quant else 'bf16'} cache: {tokens} tokens in {seconds:.2f} s = "
+            f"{tokens / seconds:.1f} tok/s; K/V{' + scales' if quant else ''} "
+            f"{kv_bytes / 2**20:.1f} MiB at C = {C}; K1 launches {n}")
+    quant_parity(model, host_model, config, bars, {"pitch_overlap": 2, "polyphony": 1,
+                                                   "sustain": 1, "rhythm_intensity": 1})
+    return launches
+
+
+def options_bypass(root: Path):
+    """The separator bypass on the card against the CPU on a 12 s click
+    track, within BYPASS_DB_ATOL (control: the card's features one frame
+    late); the features saved as `.npy` give `detect` the same beats as the
+    array, and the file is gone afterwards (control: `cleanup_input=False`
+    keeps it). Returns (features, K2 launches)."""
+    import numpy as np
+    from etude_tpu_torch.config import BeatDetectorConfig
+    from etude_tpu_torch.data.beat_detector import BeatDetector
+    from etude_tpu_torch.data.separation import SourceSeparator
+    from etude_tpu_torch.ops.dilated_attention import dilated_attention
+
+    wav = root / "click_12s.wav"
+    write_click_wav(wav, 12.0, seed=1)
+    npy = root / "bypass.npy"
+    host = SourceSeparator(bypass=True, device="cpu").separate_features(wav)
+    card = SourceSeparator(bypass=True, device="cuda").separate_features(
+        wav, output_npy_path=npy)
+    gap = float(np.abs(card - host).max())
+    control = float(np.abs(np.roll(card, 1, axis=1) - host).max())
+    say(f"  bypass features {card.shape}, card vs CPU max|diff| {gap:.3g} dB (limit "
+        f"{BYPASS_DB_ATOL}); control, one frame late: {control:.3g} dB")
+    if card.shape != host.shape or gap > BYPASS_DB_ATOL:
+        raise RuntimeError(f"bypass features: card vs CPU differ by {gap:.3g} dB")
+    if control <= BYPASS_DB_ATOL:
+        raise RuntimeError(f"the bypass check missed its control ({control:.3g} dB)")
+    detector = BeatDetector(BeatDetectorConfig(), device="cuda", allow_random_weights=True)
+    dilated_attention.launches = 0
+    want = detector.detect(card)
+    kept = detector.detect(npy, cleanup_input=False)
+    if not npy.exists():
+        raise RuntimeError("detect removed its .npy input with cleanup_input=False")
+    got = detector.detect(npy)
+    launches = dilated_attention.launches
+    if got != want or kept != want or npy.exists():
+        raise RuntimeError(f"detect on the .npy: beats equal {got == want}, file left "
+                           f"{npy.exists()}")
+    say(f"  detect on {npy.name}: the array's {len(want['beat_pred'])} beats, the file "
+        f"removed (kept with cleanup_input=False); K2 launches {launches}")
+    return card, launches
+
+
+def options_phase(root: Path, cli_root: Path, model, config, vocab, bars, attrs, flush):
+    """The serving CLI's options; returns (K1, K2) launches of the runs that
+    drive them."""
+    import copy
+
+    host_model = copy.deepcopy(model).cpu()
+    k1 = options_rebuild(cli_root, model, host_model, config, vocab, bars, attrs, flush)
+    k1 += options_attrs_prior(cli_root, model, host_model, config, vocab)
+    k1 += options_kv_quant(model, host_model, config, vocab, bars, attrs)
+    features, k2 = options_bypass(root)
+    k2 += options_reference(root / "reference", vocab, bars, features)
+    return k1, k2
+
+
 def main() -> int:
     import torch
 
@@ -1758,6 +2272,14 @@ def main() -> int:
 
             aux_k2, k2b_launches, k2b_rows = aux_train_phase(tmp / "aux", L2Flush())
             k2_launches += aux_k2
+
+        with phase("options"):
+            from etude_tpu_torch.utils.kernel_bench import L2Flush
+
+            k1, k2 = options_phase(tmp / "options", tmp / "cli", model, config, vocab, bars,
+                                   attrs, L2Flush())
+            launches += k1
+            k2_launches += k2
 
     main_row = rows[len(shapes) - 1]
     k2b_train = [r for r in k2b_rows if r["T"] == 512 and not r["head7_bug"]]

@@ -3,9 +3,9 @@ training), as plain dataclasses.
 
 Copied from the JAX package's pydantic schema (etude_tpu/config/schema.py:
 EnvConfig's seed and compute dtype :19-25, MeshConfig :28-42, the paths
-:46-65, ExtractorConfig :71-125 with its five sections,
-BeatDetectorConfig :140 with its model config, SeparatorConfig :154,
-DecoderConfig :196-216 and TrainConfig :234-273),
+:46-65 (`checkpoints_dir` :47 holds `attr_prior/`), ExtractorConfig :71-125
+with its five sections, BeatDetectorConfig :140 with its model config,
+SeparatorConfig :154, DecoderConfig :196-217 and TrainConfig :234-273),
 without pydantic: the port runs where neither pydantic nor PyYAML is
 installed. A settings file is read only when the caller names one: a `.json`
 file with the json module, anything else as YAML, which then needs PyYAML.
@@ -41,6 +41,7 @@ class MeshConfig:
 
 @dataclasses.dataclass
 class PathConfig:
+    checkpoints_dir: Path = Path("checkpoints")
     extractor_model: Path = Path("checkpoints/extractor/latest.ckpt")
     beat_detector_model: Path = Path("checkpoints/beat_detector/latest.ckpt")
     separator_model: Path = Path("checkpoints/separator/latest.ckpt")
@@ -180,6 +181,11 @@ class DecoderConfig:
     top_p: float = 0.9
     max_output_tokens: int = 25600
     max_bar_token_limit: int = 512
+
+    # Prompt-length buckets of the rebuild engine (`--engine rebuild`): a
+    # bar's prompt is left-padded to the smallest bucket that holds it.
+    prompt_buckets: List[int] = dataclasses.field(
+        default_factory=lambda: [128, 256, 512, 1024])
 
 
 @dataclasses.dataclass

@@ -10,6 +10,7 @@ downbeat]) and JSON output {beat_pred, downbeat_pred}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Dict, Optional, Union
@@ -25,6 +26,7 @@ from ..utils import model_loader
 from ..utils.device import compute_dtype_for, resolve_device
 from ..utils.logger import logger
 from ..utils.profiling import maybe_span
+from ..utils.torch_port import load_torch_beat_checkpoint
 from ..weights import beat_transformer_from_jax, init_beat_params_np
 
 FRAME_BUCKET = 2048
@@ -55,11 +57,20 @@ class BeatDetector:
         self.model_config = beat_model_config_from(config)
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype_for(self.device)
+
+        def load_reference(path):
+            # Reference weights were trained with the head-7 key-slice bug:
+            # run them with it (JAX :60-76).
+            self.model_config = dataclasses.replace(self.model_config,
+                                                    compat_head7_bug=True)
+            return load_torch_beat_checkpoint(path, self.model_config)
+
         if params is None:
             params = model_loader.load_params(
                 "beat model", model_path,
                 lambda seed: init_beat_params_np(self.model_config, seed),
-                allow_random_weights)
+                allow_random_weights,
+                reference=dict.fromkeys((".pth", ".pt"), load_reference))
         self.model = beat_transformer_from_jax(params, self.model_config, self.device)
 
         fps = 44100 / config.fps_divisor
@@ -91,12 +102,19 @@ class BeatDetector:
 
     def detect(
         self,
-        features: Union[np.ndarray, torch.Tensor],
+        features: Union[np.ndarray, torch.Tensor, str, Path],
         output_json_path: Optional[Union[str, Path]] = None,
+        cleanup_input: bool = True,
         timer=None,
     ) -> Dict:
-        """Features (an array or a device tensor) → {beat_pred,
-        downbeat_pred}."""
+        """Features (an array, a device tensor, or the path of a `.npy` file
+        that `SourceSeparator.separate_features` saved) → {beat_pred,
+        downbeat_pred}. A `.npy` input is deleted afterwards unless
+        `cleanup_input` is False (JAX :122-190)."""
+        input_file = None
+        if isinstance(features, (str, Path)):
+            input_file = Path(features)
+            features = np.load(input_file).astype(np.float32)
         with maybe_span(timer, "beat: forward"):
             act = self.activations(features)
         beat_act, down_act = act[:, 0], act[:, 1]
@@ -139,4 +157,6 @@ class BeatDetector:
             output_json_path.parent.mkdir(parents=True, exist_ok=True)
             with open(output_json_path, "w", encoding="utf-8") as f:
                 json.dump(results, f, indent=4)
+        if cleanup_input and input_file is not None and input_file.exists():
+            input_file.unlink()
         return results

@@ -29,6 +29,7 @@ from ..utils.device import compute_dtype_for, resolve_device
 from ..utils.logger import logger
 from ..utils.midi import write_midi
 from ..utils.profiling import maybe_span
+from ..utils.torch_port import load_torch_amt_checkpoint
 from ..weights import amt_from_jax, init_amt_params_np
 
 LOGIT_CLIP = 18.0
@@ -113,7 +114,10 @@ class AMTAPC_Extractor:
             params = model_loader.load_params(
                 "extractor", model_path,
                 lambda seed: init_amt_params_np(self.amt_config, seed),
-                allow_random_weights)
+                allow_random_weights,
+                reference=dict.fromkeys(
+                    (".pth", ".pt", ".pkl"),
+                    lambda path: load_torch_amt_checkpoint(path, self.amt_config)))
         self.model = amt_from_jax(params, self.amt_config, self.device)
         self.stats: Dict[str, int] = {}
 

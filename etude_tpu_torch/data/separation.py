@@ -10,6 +10,8 @@ PCM/32768 and is scaled back there.
 
 The separator runs in bf16 on the card, as the JAX package's production
 call does, and in f32 on the CPU (`utils/device.compute_dtype_for`).
+`bypass=True` skips it: the mix's mel power goes into every stem slot (an
+ablation of how much separation buys the beat tracker; JAX :92).
 """
 
 from __future__ import annotations
@@ -59,20 +61,26 @@ def _sep_filterbank(device: torch.device) -> torch.Tensor:
         norm="slaney", mel_scale="slaney")).to(device)
 
 
+def stft_power(wave: torch.Tensor) -> torch.Tensor:
+    """wave [N] (host reflect-padded; f32, or int16 PCM scaled here exactly
+    as the host's /32768) → Hann-windowed power spectrum [T, n_fft/2 + 1]."""
+    if wave.dtype == torch.int16:
+        wave = wave.float() / 32768.0
+    cos_m, sin_m = dft_matrices(SEP_N_FFT, wave.device)
+    window = torch.from_numpy(hann_window(SEP_N_FFT)).to(wave.device)
+    frames = wave.unfold(0, SEP_N_FFT, SEP_HOP)                 # [T, n_fft] view
+    return frame_power_spectrum(frames * window, cos_m, sin_m)
+
+
 def separate_mel(model: Separator, wave: torch.Tensor, true_frames: int,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    """wave [N] (host reflect-padded; f32, or int16 PCM scaled here exactly
-    as the host's /32768) → per-stem mel power [stems, T, 128] f32.
+    """wave [N] as `stft_power` takes it → per-stem mel power [stems, T, 128]
+    f32.
 
     The mask net sees RMS-normalized log1p magnitudes (the RMS over the true
     frames only); the masks then apply to the un-normalized magnitudes."""
-    if wave.dtype == torch.int16:
-        wave = wave.float() / 32768.0
     device = wave.device
-    cos_m, sin_m = dft_matrices(SEP_N_FFT, device)
-    window = torch.from_numpy(hann_window(SEP_N_FFT)).to(device)
-    frames = wave.unfold(0, SEP_N_FFT, SEP_HOP)                 # [T, n_fft] view
-    mag = frame_power_spectrum(frames * window, cos_m, sin_m).clamp_min(0.0).sqrt()
+    mag = stft_power(wave).clamp_min(0.0).sqrt()
 
     n_frames = mag.shape[0]
     frame_ok = (torch.arange(n_frames, device=device) < true_frames)[:, None]
@@ -83,6 +91,14 @@ def separate_mel(model: Separator, wave: torch.Tensor, true_frames: int,
     masks = model(torch.log1p(mag_in)[None], compute_dtype)[0]   # [S, T, F]
     stem_power = (masks * mag[None]).square()
     return torch.einsum("stf,fm->stm", stem_power, _sep_filterbank(device))
+
+
+def mix_mel(wave: torch.Tensor, n_stems: int) -> torch.Tensor:
+    """Separator bypass (JAX `_mix_mel_jit` :92): the mix's mel power
+    [n_stems, T, 128] f32, the same in every stem slot. `wave` as
+    `stft_power` takes it."""
+    mel = stft_power(wave) @ _sep_filterbank(wave.device)
+    return mel[None].expand(n_stems, *mel.shape)
 
 
 def pad_bucket_wave(wave: np.ndarray):
@@ -117,12 +133,18 @@ class SourceSeparator:
         config: Optional[SeparatorConfig] = None,
         device=None,
         allow_random_weights: bool = False,
+        bypass: bool = False,
     ):
         """`params` (a JAX-layout numpy tree) wins over `model_path`. Runs on
-        CUDA unless `device` is the CPU."""
+        CUDA unless `device` is the CPU. `bypass` loads no weights and tiles
+        the mix's mel into every stem slot."""
         self.config = config or SeparatorConfig()
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype_for(self.device)
+        self.bypass = bypass
+        self.model = None
+        if bypass:
+            return
         if params is None:
             params = model_loader.load_params(
                 "separator", model_path,
@@ -133,16 +155,19 @@ class SourceSeparator:
     def separate_features(
         self,
         audio_path: Union[str, Path],
+        output_npy_path: Optional[Union[str, Path]] = None,
         return_device: bool = False,
         timer=None,
         wave_sr=None,
     ):
         """Audio → dB-mel features (5, time, 128).
 
-        return_device=True hands back the device tensor (the beat detector
-        reads it there, with no host round trip). `wave_sr=(wave,
-        native_sr)` reuses a decoded waveform; at 44.1 kHz it is not
-        resampled, so WAV input still crosses as int16."""
+        `output_npy_path` also saves them there as f32 `.npy` (JAX
+        :236-241), which `BeatDetector.detect` reads. return_device=True
+        hands back the device tensor (the beat detector reads it there,
+        with no host round trip). `wave_sr=(wave, native_sr)` reuses a
+        decoded waveform; at 44.1 kHz it is not resampled, so WAV input
+        still crosses as int16."""
         with maybe_span(timer, "sep: wav decode"):
             if wave_sr is not None:
                 wave = resample_audio(wave_sr[0], wave_sr[1], SEP_SR)
@@ -160,11 +185,18 @@ class SourceSeparator:
 
         with torch.inference_mode():
             with maybe_span(timer, "sep: STFT + U-Net + mel"):
-                mel_power = separate_mel(self.model, wave_dev, true_frames,
-                                         self.compute_dtype)
+                if self.bypass:
+                    mel_power = mix_mel(wave_dev, self.config.num_stems)
+                else:
+                    mel_power = separate_mel(self.model, wave_dev, true_frames,
+                                             self.compute_dtype)
             with maybe_span(timer, "sep: power to dB"):
                 features = power_to_db_device(mel_power, true_frames)[:, :true_frames]
 
+        if output_npy_path is not None:
+            output_npy_path = Path(output_npy_path)
+            output_npy_path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(output_npy_path, features.float().cpu().numpy())
         if return_device:
             return features
         return features.float().cpu().numpy()

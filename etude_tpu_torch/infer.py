@@ -9,12 +9,16 @@ decoded once; Extract (audio → `extract.json`, :104-114), Structuralize
 and `tempo.json`, :121-142) and the volume map (`volume.json`, :116-119)
 run as three concurrent threads, each on a CUDA stream of its own, while a
 fourth makes the decoder; then Decode (:144-275) reads the work-dir
-contract, tokenizes the condition, runs the streaming engine and writes
+contract, tokenizes the condition, runs the generation engine and writes
 `<infer_output_dir>/<name>.mid` with the port's own tokenizer and MIDI
 writer. `--decode-only` runs Decode alone on the work dir's intermediates;
 `--sweep` decodes all 27 polyphony/rhythm/sustain combinations as 27
-streams on one card. A URL input, `--engine rebuild` and `--attrs-prior`
-are not ported.
+streams on one card. `--engine stream` (the default) is the persistent-KV
+engine; `--engine rebuild` prefills every bar's prompt again (the
+reference's exact semantics, :174-196). `--attrs-prior` conditions each bar
+on the bins that the predictor in `<paths.checkpoints_dir>/attr_prior`
+gives its source bar (:247-256). Reference `.pth`/`.pt`/`.pkl` weights load
+from the model paths. A URL input is not ported.
 
 It runs on CUDA unless `--device cpu` is given; with no GPU it raises rather
 than carry on on the CPU. With no `--config`, the settings are the defaults
@@ -42,6 +46,8 @@ from .data.extractor import AMTAPC_Extractor
 from .data.separation import SourceSeparator
 from .data.tokenizer import TinyREMITokenizer, split_sequence_into_bars
 from .data.vocab import Vocab
+from .models.attr_prior import AttrPrior
+from .models.generate import GenerationEngine
 from .models.generate_stream import StreamingGenerationEngine
 from .utils.audio import analyze_volume, decode_audio, save_volume_map
 from .utils.device import resolve_device
@@ -56,10 +62,13 @@ class InferencePipeline:
     """Audio (a local file) → piano-cover MIDI."""
 
     def __init__(self, config: EtudeConfig, device=None,
-                 allow_random_weights: bool = False):
+                 allow_random_weights: bool = False, engine_kind: str = "stream",
+                 attrs_prior: bool = False):
         self.config = config
         self.device = resolve_device(device)
         self.allow_random_weights = allow_random_weights
+        self.engine_kind = engine_kind
+        self.attrs_prior = attrs_prior
         self.output_dir = Path(config.paths.infer_output_dir)
         self.work_dir = self.output_dir / "temp"
         self.output_dir.mkdir(parents=True, exist_ok=True)
@@ -184,13 +193,15 @@ class InferencePipeline:
             return
 
         d = self.config.decoder
-        engine = StreamingGenerationEngine(
-            model_config,
-            bar_bos_id=vocab.bar_bos_id,
-            bar_eos_id=vocab.bar_eos_id,
-            pad_id=vocab.pad_id,
-            max_bar_token_limit=d.max_bar_token_limit,
-        )
+        if self.engine_kind == "stream":
+            engine = StreamingGenerationEngine(
+                model_config, bar_bos_id=vocab.bar_bos_id, bar_eos_id=vocab.bar_eos_id,
+                pad_id=vocab.pad_id, max_bar_token_limit=d.max_bar_token_limit)
+        else:
+            engine = GenerationEngine(
+                model_config, bar_bos_id=vocab.bar_bos_id, bar_eos_id=vocab.bar_eos_id,
+                pad_id=vocab.pad_id, prompt_buckets=tuple(d.prompt_buckets),
+                max_bar_token_limit=d.max_bar_token_limit)
         if sweep:
             combos = [
                 {"polyphony_bin": p, "rhythm_intensity_bin": r, "sustain_bin": s,
@@ -211,9 +222,16 @@ class InferencePipeline:
             logger.success(f"sweep MIDI files saved to {self.output_dir}")
             return
 
+        per_bar_attrs = [target_attributes] * len(all_x_bars)
+        if self.attrs_prior:
+            prior_path = Path(self.config.paths.checkpoints_dir) / "attr_prior"
+            per_bar_attrs = AttrPrior.load(prior_path).predict_bins(all_x_bars, vocab,
+                                                                    seed=seed)
+            logger.info("per-bar attributes from the trained predictor")
+
         with self.timer.span("decode: generate", nested=True):
             bars = engine.generate(
-                model, all_x_bars, [target_attributes] * len(all_x_bars),
+                model, all_x_bars, per_bar_attrs,
                 temperature=d.temperature, top_p=d.top_p,
                 max_output_tokens=d.max_output_tokens, seed=seed, progress=True,
             )
@@ -310,22 +328,20 @@ def main(argv=None) -> int:
     gen.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     gen.add_argument("--seed", type=int, default=0)
     gen.add_argument("--attrs-prior", action="store_true",
-                     help="per-bar attribute bins from the trained predictor "
-                          "(not yet ported)")
+                     help="per-bar attribute bins from the trained "
+                          "source-conditioned predictor (<checkpoints_dir>/"
+                          "attr_prior) instead of the fixed "
+                          "--polyphony/--rhythm/--sustain combo")
     gen.add_argument("--sweep", action="store_true",
                      help="decode all 27 attribute combinations (batched)")
     gen.add_argument("--engine", choices=["stream", "rebuild"], default="stream",
-                     help="'stream' = persistent-KV engine; 'rebuild' is not "
-                          "yet ported")
+                     help="decode engine: 'stream' = whole-song persistent-KV "
+                          "engine; 'rebuild' = per-bar prompt rebuild (exact "
+                          "reference semantics)")
     gen.add_argument("--allow-random-weights", action="store_true",
                      help="proceed with random weights when the checkpoint "
                           "is missing (smoke runs and tests only)")
     args = parser.parse_args(argv)
-
-    if args.engine != "stream":
-        raise NotImplementedError("--engine rebuild is not yet ported to etude_tpu_torch")
-    if args.attrs_prior:
-        raise NotImplementedError("--attrs-prior is not yet ported to etude_tpu_torch")
 
     overrides = {}
     if args.temperature is not None:
@@ -343,6 +359,7 @@ def main(argv=None) -> int:
     InferencePipeline(
         config, device=args.device,
         allow_random_weights=args.allow_random_weights,
+        engine_kind=args.engine, attrs_prior=args.attrs_prior,
     ).run(args.input, target_attributes, final_filename=args.output_name,
           decode_only=args.decode_only, sweep=args.sweep, seed=args.seed)
     return 0

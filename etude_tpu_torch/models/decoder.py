@@ -10,6 +10,10 @@ in f32, and the QKV projection split per head as [q_h | k_h | v_h]
 (reshape to [B, T, H, 3D], then split). The embeddings have no
 `padding_idx`: the JAX package trains the pad rows too (they are zero only
 at init).
+
+`forward_with_cache` (JAX :355) runs a chunk of tokens against a KV cache
+for the rebuild engine (models/generate.py); its cache is [L, B, H, T, D],
+so a layer's cache is the [B, H, C, D] the decode-attention kernel takes.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.decode_attention import decode_attention
 from . import param_count  # noqa: F401  (re-exported, as in the JAX module)
 
 # Attribute order is part of the data contract (concatenation order of the
@@ -120,6 +126,18 @@ def _apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     sin = sin[..., None, :]
     x_rot = x_rot * cos + _rotate_half(x_rot) * sin
     return torch.cat([x_rot, x_pass], dim=-1)
+
+
+def masked_attention(q: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """Attention of S queries over a cache in plain PyTorch, mirroring the
+    JAX einsums: bf16 operands, f32 scores and softmax, bf16 context.
+    q [B, S, H, D] f32; k_l/v_l [B, H, C, D] bf16; bias [B, 1, S, C]."""
+    scores = torch.einsum(
+        "bqhd,bhcd->bhqc", q.bfloat16().float(), k_l.float()
+    ) / math.sqrt(q.shape[-1])
+    probs = torch.softmax(scores + bias, dim=-1)
+    return torch.einsum("bhqc,bhcd->bqhd", probs.bfloat16(), v_l)
 
 
 # ------------------------------------------------------------------ model
@@ -280,3 +298,67 @@ def loss_fn(model: EtudeDecoder, batch: Dict[str, torch.Tensor],
         "accuracy": ((logits.argmax(-1) == labels) & valid).sum() / n_valid,
     }
     return loss, metrics
+
+
+# --------------------------------------------------------------- KV cache
+def init_cache(config: EtudeDecoderConfig, batch: int, length: Optional[int] = None,
+               device=None) -> Dict[str, torch.Tensor]:
+    """A zeroed bf16 KV cache, k and v each [L, B, H, length, D] (JAX
+    `init_cache` :336 keeps [L, B, length, H, D]); `length` defaults to
+    max_position_embeddings."""
+    shape = (config.num_hidden_layers, batch, config.num_attention_heads,
+             length or config.max_position_embeddings, config.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+
+def forward_with_cache(
+    model: EtudeDecoder,
+    cache: Dict[str, torch.Tensor],
+    input_ids: torch.Tensor,            # [B, S]
+    class_ids: torch.Tensor,            # [B, S]
+    attr_ids: Dict[str, torch.Tensor],  # each [B, S]
+    write_pos: int,                     # cache slot of token 0
+    positions: torch.Tensor,            # [B, S] logical positions (rotary)
+    visible_from: torch.Tensor,         # [B] first visible cache slot
+    layer_weights: Optional[List[Dict[str, torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """S new tokens against the cache (JAX `forward_with_cache` :355), in
+    bf16 with f32 rotary, LayerNorm and LM head. Their K/V are written in
+    place at slots [write_pos, write_pos + S); the query at slot p sees the
+    slots visible_from[b] <= t <= p. Returns (f32 logits [B, S, V], cache).
+
+    The prefill (S = the left-padded prompt) runs plain masked attention, as
+    JAX computes it with einsums; an S = 1 step runs the decode-attention
+    kernel on every layer (its plain version only for CPU tensors), with
+    the visibility as a [B, C] f32 bias. `layer_weights` are the layers'
+    matmul weights already cast to bf16 (`DecoderLayer.cast`)."""
+    config = model.config
+    B, S = input_ids.shape
+    device = input_ids.device
+    k_cache, v_cache = cache["k"], cache["v"]
+    C = k_cache.shape[3]
+
+    h = model.embed_inputs(input_ids, class_ids, attr_ids, torch.bfloat16)
+    cos_t, sin_t = _device_rotary_tables(config, device)
+    cos, sin = cos_t[positions], sin_t[positions]             # [B, S, rot]
+
+    key_slots = torch.arange(C, device=device)[None, None, :]
+    query_slots = (write_pos + torch.arange(S, device=device))[None, :, None]
+    visible = (key_slots <= query_slots) & (key_slots >= visible_from[:, None, None])
+    bias = torch.where(visible, 0.0, -1e9).float()[:, None]   # [B, 1, S, C]
+
+    if layer_weights is None:
+        layer_weights = [layer.cast(torch.bfloat16) for layer in model.layers]
+    end = write_pos + S
+    for l, layer in enumerate(model.layers):
+        def attend(q, k, v, l=l):
+            k_cache[l, :, :, write_pos:end] = k.bfloat16().transpose(1, 2)
+            v_cache[l, :, :, write_pos:end] = v.bfloat16().transpose(1, 2)
+            if S == 1:
+                return decode_attention(q[:, 0], k_cache[l], v_cache[l],
+                                        bias[:, 0, 0])[:, None]
+            return masked_attention(q, k_cache[l], v_cache[l], bias)
+
+        h = layer_step(layer, layer_weights[l], h, cos, sin, config, attend)
+    return model.head(h), cache

@@ -32,8 +32,16 @@ updates the cache tensors in place (functions return the same dict) and runs
 the bar and step loops on the host, with the per-step done flags on the
 device and one host read of "all done" per step. The attention reads the full
 slot axis; the JAX engine's `hist_read` narrowing only skips slots that are
-always dead, so the results are the same. The int8 cache variant is not
-ported yet.
+always dead, so the results are the same.
+
+`kv_quant` keeps K/V as int8 with one f32 scale per (layer, stream, head,
+slot), amax/127 symmetric (JAX `init_stream_cache(quant=True)` :130-160):
+half the cache bytes. JAX computes its attention with XLA einsums, int8 x
+int8 → s32 with the scales applied outside the contractions, and so does
+the port, in plain PyTorch with exact products: the score sums (D = 64
+terms of at most 127², below 2^24) in f32, the context sums (C terms, which
+can pass 2^24) in f64. The int8 path launches no kernel; the bf16 path runs
+the decode-attention kernel on every S = 1 step.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ from ..data.tokenizer import SRC_CLASS_ID, TGT_CLASS_ID
 from ..ops.decode_attention import decode_attention
 from ..ops.sampling import sample_token
 from ..utils.logger import logger
-from .decoder import ATTRIBUTE_ORDER, EtudeDecoder, EtudeDecoderConfig, layer_step
+from .decoder import (ATTRIBUTE_ORDER, EtudeDecoder, EtudeDecoderConfig, layer_step,
+                      masked_attention)
 from .generate import ATTR_KEYS, _ATTR_KEY_TO_NAME
 
 _POS_SPLIT = 4096  # positions = hi * 4096 + lo; hi phases folded mod 2π
@@ -87,18 +96,32 @@ def _rotary_at(positions: torch.Tensor, config: EtudeDecoderConfig, max_hi: int)
 
 
 def init_stream_cache(config: EtudeDecoderConfig, batch: int, cache_len: int,
-                      device=None):
-    """Two-region window cache: bf16 k/v [L, B, H, C, D], slot_pos [B, C] =
-    -1."""
+                      device=None, quant: bool = False):
+    """Two-region window cache: k/v [L, B, H, C, D] (bf16, or int8 with
+    `quant` and then f32 scales k_scale/v_scale [L, B, H, C]), slot_pos
+    [B, C] = -1."""
     L, H, D = (config.num_hidden_layers, config.num_attention_heads,
                config.head_dim)
     shape = (L, batch, H, cache_len, D)
-    return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+    dtype = torch.int8 if quant else torch.bfloat16
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
         "slot_pos": torch.full((batch, cache_len), -1, dtype=torch.long,
                                device=device),
     }
+    if quant:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor):
+    """[..., D] f32 → (int8 values, f32 scales [...]): amax/127 symmetric
+    per row (JAX `_quantize_kv` :163, bit for bit)."""
+    scale = x.abs().amax(dim=-1) / 127.0
+    q = torch.round(x / scale.clamp_min(1e-8)[..., None])
+    return q.to(torch.int8), scale
 
 
 def compact_window(cache, win_start: torch.Tensor, cur: torch.Tensor, hist: int):
@@ -118,12 +141,15 @@ def compact_window(cache, win_start: torch.Tensor, cur: torch.Tensor, hist: int)
     live = live & match.any(dim=2)
     src = match.int().argmax(dim=2)                                 # [B, hist]
 
-    for key in ("k", "v"):
-        arr = cache[key]                                            # [L,B,H,C,D]
-        L, _, H, _, D = arr.shape
-        index = src[None, :, None, :, None].expand(L, B, H, hist, D)
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key not in cache:
+            continue
+        arr = cache[key]                                # [L,B,H,C,D] or [L,B,H,C]
+        L, _, H = arr.shape[:3]
+        tail = arr.shape[4:]
+        index = src.view(1, B, 1, hist, *[1] * len(tail)).expand(L, B, H, hist, *tail)
         hist_part = torch.gather(arr, 3, index)
-        hist_part = torch.where(live[None, :, None, :, None], hist_part,
+        hist_part = torch.where(live.view(1, B, 1, hist, *[1] * len(tail)), hist_part,
                                 torch.zeros((), dtype=arr.dtype, device=arr.device))
         arr[:, :, :, :hist] = hist_part
         arr[:, :, :, hist:] = 0
@@ -132,15 +158,24 @@ def compact_window(cache, win_start: torch.Tensor, cur: torch.Tensor, hist: int)
     return cache
 
 
-def _masked_attention(q, k_l, v_l, bias):
-    """S > 1 attention over the whole cache in plain PyTorch, mirroring the
-    JAX einsums: bf16 operands, f32 scores and softmax, bf16 context.
-    q [B, S, H, D] f32; k_l/v_l [B, H, C, D] bf16; bias [B, 1, S, C]."""
-    scores = torch.einsum(
-        "bqhd,bhcd->bhqc", q.bfloat16().float(), k_l.float()
-    ) / math.sqrt(q.shape[-1])
+def _quant_attention(q, k_l, v_l, ks_l, vs_l, bias):
+    """Attention over the int8 cache, as the JAX quant path computes it
+    (generate_stream.py:398-419): q quantized per (token, head), scores
+    int8·int8 scaled by the q and key-slot scales, f32 softmax; the
+    probabilities times the value-slot scales quantized per (stream, head,
+    query) and contracted with the int8 values. q [B, S, H, D] f32;
+    k_l/v_l [B, H, C, D] int8; ks_l/vs_l [B, H, C] f32; bias [B, 1, S, C] →
+    context [B, S, H, D] bf16."""
+    q_q, q_s = _quantize_kv(q)
+    s32 = torch.einsum("bqhd,bhcd->bhqc", q_q.float(), k_l.float())
+    scores = (s32 * q_s.transpose(1, 2)[..., None] * ks_l[:, :, None, :]
+              ) / math.sqrt(q.shape[-1])
     probs = torch.softmax(scores + bias, dim=-1)
-    return torch.einsum("bhqc,bhcd->bqhd", probs.bfloat16(), v_l)
+    pv = probs * vs_l[:, :, None, :]
+    p_scale = pv.amax(dim=-1) / 127.0
+    p_q = torch.round(pv / p_scale.clamp_min(1e-12)[..., None])
+    c32 = torch.einsum("bhqc,bhcd->bqhd", p_q.double(), v_l.double())
+    return (c32.float() * p_scale.transpose(1, 2)[..., None]).bfloat16()
 
 
 def stream_chunk(
@@ -162,9 +197,11 @@ def stream_chunk(
     """Encode S new tokens of the stream against the window cache, writing
     their K/V and positions in place. Returns (f32 logits [B, S, V], cache).
 
-    S = 1 runs the CUDA decode-attention kernel on every layer (its plain
-    version on the CPU); S > 1 (the seed and condition chunks) runs plain
-    masked attention. Compute is bf16 (f32 rotary, LayerNorm and LM head).
+    On a bf16 cache, S = 1 runs the CUDA decode-attention kernel on every
+    layer (its plain version on the CPU) and S > 1 (the seed and condition
+    chunks) runs plain masked attention; an int8 cache runs
+    `_quant_attention` for every S. Compute is bf16 (f32 rotary, LayerNorm
+    and LM head).
     `layer_weights` are the layers' matmul weights already cast to bf16
     (EtudeDecoder layers' `cast`), made once per song."""
     config = model.config
@@ -196,14 +233,24 @@ def stream_chunk(
     if layer_weights is None:
         layer_weights = [layer.cast(torch.bfloat16) for layer in model.layers]
     k_cache, v_cache = cache["k"], cache["v"]
+    quant = "k_scale" in cache
+    slots = slice(slot_offset, slot_offset + S)
     for l, layer in enumerate(model.layers):
         def attend(q, k, v, l=l):
-            k_cache[l, :, :, slot_offset:slot_offset + S] = k.bfloat16().transpose(1, 2)
-            v_cache[l, :, :, slot_offset:slot_offset + S] = v.bfloat16().transpose(1, 2)
+            if quant:
+                for arr, scale, x in ((k_cache, cache["k_scale"], k),
+                                      (v_cache, cache["v_scale"], v.float())):
+                    values, scales = _quantize_kv(x)
+                    arr[l, :, :, slots] = values.transpose(1, 2)
+                    scale[l, :, :, slots] = scales.transpose(1, 2)
+                return _quant_attention(q, k_cache[l], v_cache[l], cache["k_scale"][l],
+                                        cache["v_scale"][l], bias)
+            k_cache[l, :, :, slots] = k.bfloat16().transpose(1, 2)
+            v_cache[l, :, :, slots] = v.bfloat16().transpose(1, 2)
             if S == 1:
                 ctx = decode_attention(q[:, 0], k_cache[l], v_cache[l], bias[:, 0, 0])
                 return ctx[:, None]
-            return _masked_attention(q, k_cache[l], v_cache[l], bias)
+            return masked_attention(q, k_cache[l], v_cache[l], bias)
 
         h = layer_step(layer, layer_weights[l], h, cos, sin, config, attend)
     return model.head(h), cache
@@ -230,19 +277,21 @@ def generate_song_stream(
     prompt_cap: int,
     prompt_keep: int,
     max_hi: int,
+    kv_quant: bool = False,
     stats: Optional[Dict[str, int]] = None,
 ):
     """Generate every bar of a song for B lockstep streams.
 
     Returns (y_tokens [B, N_BARS, max_new_tokens], y_counts [B, N_BARS]);
     each bar's tokens exclude the Bar_BOS opener and include the Bar_EOS.
-    `stats["single_token_chunks"]`, when given, counts the S = 1 chunks run
-    (each launches the decode-attention kernel once per layer on a card)."""
+    `kv_quant` keeps the cache in int8. `stats["single_token_chunks"]`,
+    when given, counts the S = 1 chunks run (on a bf16 cache each launches
+    the decode-attention kernel once per layer on a card)."""
     device = x_tokens.device
     B, N_BARS, X = x_tokens.shape
     cache_len = hist + X + 1 + max_new_tokens
     weights = [layer.cast(torch.bfloat16) for layer in model.layers]
-    cache = init_stream_cache(model.config, B, cache_len, device=device)
+    cache = init_stream_cache(model.config, B, cache_len, device=device, quant=kv_quant)
     chunk = functools.partial(stream_chunk, model, cache, max_hi=max_hi,
                               layer_weights=weights)
 
@@ -336,9 +385,9 @@ class StreamingGenerationEngine:
     every bar on the model's device, and unpacks bars.
 
     Prompt-window semantics (history pairs, empty-bar padding, truncation,
-    attribute/class streams) are those of the JAX engine.
-    `stats["single_token_chunks"]` accumulates the S = 1 chunks of every
-    call.
+    attribute/class streams) are those of the JAX engine. `kv_quant` keeps
+    the cache in int8 (JAX :690). `stats["single_token_chunks"]` accumulates
+    the S = 1 chunks of every call.
     """
 
     def __init__(
@@ -350,8 +399,10 @@ class StreamingGenerationEngine:
         max_bar_token_limit: int = 512,
         x_len_buckets: Sequence[int] = (64, 128, 192, 320),
         bars_bucket: int = 32,
+        kv_quant: bool = False,
     ):
         self.config = config
+        self.kv_quant = kv_quant
         self.bar_bos_id = bar_bos_id
         self.bar_eos_id = bar_eos_id
         self.pad_id = pad_id
@@ -459,6 +510,7 @@ class StreamingGenerationEngine:
             prompt_cap=self.prompt_cap,
             prompt_keep=self.prompt_keep,
             max_hi=packed["max_hi"],
+            kv_quant=self.kv_quant,
             stats=self.stats,
         )
         y_tokens = y_tokens.cpu().numpy()

@@ -1,42 +1,51 @@
 """Model weights for inference (JAX counterparts:
 etude_tpu/utils/model_loader.py:71 for the decoder, the loading branches of
 data/extractor.py:162-185, data/separation.py:172-187 and
-data/beat_detector.py:309-340).
+data/beat_detector.py:60-92).
 
-A directory in the port's params-only format (`utils/training.py`: a
-`params.npz` of the JAX tree, as `python -m etude_tpu_torch.train` exports
-it) is read with numpy: the branch of the JAX loader that restores a
-params-only checkpoint (etude_tpu/utils/model_loader.py:93-98). The
-committed checkpoints are orbax directories, which only `jax` + `orbax` can
-read; the port runs where neither is installed. So an orbax checkpoint
-raises, naming the export it would need, and random weights (the JAX
-package's `init_params` draws from seed 0, through the weight bridge) are
-used only when the checkpoint is missing and the caller allows them.
+Three kinds of checkpoint are read:
+- a directory in the port's params-only format (`utils/training.py`: a
+  `params.npz` of the JAX tree, as `python -m etude_tpu_torch.train`
+  exports it), with numpy: the branch of the JAX loader that restores a
+  params-only checkpoint (etude_tpu/utils/model_loader.py:93-98);
+- the reference's torch files, through `utils/torch_port.py`: `.pth`/`.pt`
+  for the decoder and the Beat-Transformer, `.pth`/`.pt`/`.pkl` for the
+  hFT transcriber (JAX model_loader.py:85-92, extractor.py:162-170,
+  beat_detector.py:60-76);
+- none, when the checkpoint is missing and the caller allows random weights
+  (the JAX package's `init_params` draws from seed 0, through the weight
+  bridge).
+The committed checkpoints are orbax directories, which only `jax` + `orbax`
+can read; the port runs where neither is installed. So an orbax checkpoint
+raises, naming the export it would need.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Tuple, Union
+from typing import Callable, Mapping, Optional, Tuple, Union
 
 from ..models.decoder import EtudeDecoder, EtudeDecoderConfig
 from ..weights import ParamTree, decoder_from_jax, init_decoder_params_np
 from .logger import logger
+from .torch_port import load_torch_decoder_checkpoint
 from .training import is_params_dir, load_params_only
 
 
 def load_params(what: str, model_path: Union[str, Path, None],
                 init_params: Callable[[int], ParamTree],
-                allow_random_weights: bool = False) -> ParamTree:
-    """A model's parameter tree as numpy arrays: from a params-only export,
+                allow_random_weights: bool = False,
+                reference: Optional[Mapping[str, Callable[[Path], ParamTree]]] = None,
+                ) -> ParamTree:
+    """A model's parameter tree as numpy arrays: from a reference torch file
+    whose suffix `reference` maps to its loader, from a params-only export,
     or `init_params(0)` when `model_path` is missing and random weights are
-    allowed. Any other checkpoint raises: orbax cannot be read here, and
-    loading reference `.pth`/`.pt`/`.pkl` files is not yet ported."""
+    allowed. Any other checkpoint raises: orbax cannot be read here."""
     if model_path is not None and Path(model_path).exists():
-        if Path(model_path).suffix in (".pth", ".pt", ".pkl"):
-            raise NotImplementedError(
-                f"{what}: reference torch checkpoints ({model_path}) are not "
-                "yet ported to etude_tpu_torch")
+        load_reference = (reference or {}).get(Path(model_path).suffix)
+        if load_reference is not None:
+            logger.info(f"{what}: reference torch checkpoint ported from {model_path}")
+            return load_reference(Path(model_path))
         if is_params_dir(model_path):
             logger.debug(f"{what} weights loaded from {model_path}")
             return load_params_only(model_path)
@@ -72,5 +81,8 @@ def load_etude_decoder(
 
     params = load_params("decoder", model_path,
                          lambda seed: init_decoder_params_np(config, seed),
-                         allow_random_weights)
+                         allow_random_weights,
+                         reference=dict.fromkeys(
+                             (".pth", ".pt"),
+                             lambda path: load_torch_decoder_checkpoint(path, config)))
     return decoder_from_jax(params, config, device), config

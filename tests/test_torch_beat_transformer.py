@@ -27,6 +27,7 @@ from etude_tpu_torch.config import BeatDetectorConfig
 from etude_tpu_torch.data.beat_detector import BeatDetector
 from etude_tpu_torch.models.beat_transformer import BeatTransformerConfig
 from etude_tpu_torch.ops.dilated_attention import dilated_attention
+from etude_tpu_torch.tools.reference_state import beat_state_dict
 from etude_tpu_torch.weights import beat_transformer_from_jax, init_beat_params_np
 
 REPO = Path(__file__).resolve().parent.parent
@@ -162,10 +163,15 @@ def test_detect_matches_jax(octave, jax_f32_detector):
 def test_weights_follow_the_loader_rules(tmp_path):
     with pytest.raises(RuntimeError, match="orbax"):
         BeatDetector(BeatDetectorConfig(), model_path=CKPT, device="cpu")
+    # A reference .pth is converted and runs with head 7's keys from head 6.
+    tree = init_beat_params_np(BeatTransformerConfig(**TINY), seed=4)
     pth = tmp_path / "beat.pth"
-    pth.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not\\s+yet ported"):
-        BeatDetector(BeatDetectorConfig(), model_path=pth, device="cpu")
+    torch.save({"state_dict": beat_state_dict(tree, BeatTransformerConfig(**TINY))}, pth)
+    ref = BeatDetector(_tiny_detector_config(), model_path=pth, device="cpu")
+    assert ref.model_config.compat_head7_bug and ref.model.config.compat_head7_bug
+    for a, b in zip(ref.model.state_dict().values(),
+                    beat_transformer_from_jax(tree, BeatTransformerConfig(**TINY)).state_dict().values()):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
     missing = tmp_path / "none.ckpt"
     with pytest.raises(FileNotFoundError):
         BeatDetector(_tiny_detector_config(), model_path=missing, device="cpu")

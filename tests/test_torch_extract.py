@@ -29,6 +29,7 @@ from etude_tpu.data.synthetic import render_piano, synth_piano_notes
 from etude_tpu.models import amt as jamt
 from etude_tpu_torch.config import ExtractorConfig
 from etude_tpu_torch.data import extractor as ext
+from etude_tpu_torch.tools.reference_state import amt_state_dict, save_whole_model
 from etude_tpu_torch.utils.audio import save_wav
 from etude_tpu_torch.utils.midi import read_midi_notes
 from etude_tpu_torch.weights import init_amt_params_np
@@ -215,11 +216,14 @@ def test_weights_follow_the_loader_rules(tmp_path):
     with pytest.raises(RuntimeError, match="orbax"):
         ext.AMTAPC_Extractor(ExtractorConfig(), model_path=REPO / "checkpoints/extractor/latest.ckpt",
                              device="cpu")
+    # Reference files, a state dict and a pickled whole model, are converted.
+    tree = init_amt_params_np(ext.amt_config_from(cfg), seed=5)
+    state = amt_state_dict(tree, ext.amt_config_from(cfg))
+    torch.save(state, tmp_path / "hft.pth")
+    save_whole_model(state, tmp_path / "hft.pkl")
     for suffix in (".pth", ".pkl"):
-        ref = tmp_path / f"hft{suffix}"
-        ref.write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="not\\s+yet ported"):
-            ext.AMTAPC_Extractor(cfg, model_path=ref, device="cpu")
+        ref = ext.AMTAPC_Extractor(cfg, model_path=tmp_path / f"hft{suffix}", device="cpu")
+        np.testing.assert_array_equal(ref.model.note_query.numpy(), tree["note_query"])
     missing = tmp_path / "none.ckpt"
     with pytest.raises(FileNotFoundError):
         ext.AMTAPC_Extractor(cfg, model_path=missing, device="cpu")

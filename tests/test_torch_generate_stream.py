@@ -47,6 +47,17 @@ ENGINE_KW = dict(bar_bos_id=BOS, bar_eos_id=EOS, pad_id=0,
                  max_bar_token_limit=32, x_len_buckets=(16, 32), bars_bucket=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tiny-width tests run one small op after another: with pytest's
+    workers sharing the cores, torch's thread pool only contends. One
+    thread, restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jconfig, config = JaxConfig(**TINY), EtudeDecoderConfig(**TINY)
@@ -218,15 +229,15 @@ def test_stream_sampled_structure_and_budget(setup):
 _jax_chunk = jax.jit(jgs.stream_chunk, static_argnums=(1,), static_argnames=("max_hi",))
 
 
-def _jax_replay(jconfig, params, engine, bars, attrs, jax_bars):
+def _jax_replay(jconfig, params, engine, bars, attrs, jax_bars, quant=False):
     """Replays the JAX stream for one song, teacher-forced with the JAX
     engine's own tokens; yields ((bar, step), logits) for every logits
-    vector the engine sampled from."""
+    vector the engine sampled from. `quant` replays the int8 cache."""
     packed = engine.pack([bars], [attrs])
     X, hist, n_ctx = packed["X"], packed["hist"], jconfig.context_num_past_xy_pairs
     kw = dict(max_hi=packed["max_hi"])
     i32 = lambda a: jnp.asarray(a, jnp.int32)  # noqa: E731
-    cache = jgs.init_stream_cache(jconfig, 1, packed["cache_len"])
+    cache = jgs.init_stream_cache(jconfig, 1, packed["cache_len"], quant=quant)
     seed_ids = i32([[BOS, EOS] * (2 * n_ctx)])
     seed_cls = i32([([SRC_CLASS_ID] * 2 + [TGT_CLASS_ID] * 2) * n_ctx])
     ones = {n: jnp.ones_like(seed_ids) for n in ATTRIBUTE_ORDER}

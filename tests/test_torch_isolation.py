@@ -66,6 +66,15 @@ def test_importing_the_port_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
+def test_the_serving_options_modules_are_covered():
+    """The modules of the rebuild engine, the attribute prior, reference
+    weights and their synthetic writer are among the files checked above."""
+    covered = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"etude_tpu_torch/models/generate.py", "etude_tpu_torch/models/attr_prior.py",
+            "etude_tpu_torch/utils/torch_port.py",
+            "etude_tpu_torch/tools/reference_state.py"} <= covered
+
+
 def test_no_large_files_in_the_package():
     for path in (REPO / "etude_tpu_torch").rglob("*"):
         if path.is_file() and "__pycache__" not in path.parts:

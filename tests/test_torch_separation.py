@@ -231,3 +231,49 @@ def test_wav_io_and_resampling_match_jax(tmp_path):
                                atol=1e-5, rtol=0)
     decoded, _ = audio.decode_audio(path, target_sr=22050)
     np.testing.assert_array_equal(decoded, audio.resample_audio(ours, 44100, 22050))
+
+
+@pytest.mark.parametrize("sr", [44100, 22050], ids=["int16", "resampled"])
+def test_bypass_features_match_jax(tmp_path, sr):
+    """The separator bypass (no mask net, no weights: the mix's mel power in
+    every stem slot) against the JAX package's on a 1 s WAV, within the
+    feature tolerance DB_ATOL; every stem is the same."""
+    path = tmp_path / "mix.wav"
+    _tone_wav(path, sr=sr)
+    ref = jax_sep.SourceSeparator(bypass=True).separate_features(path)
+    separator = sep.SourceSeparator(bypass=True, device="cpu")
+    assert separator.model is None
+    out = separator.separate_features(path)
+    assert out.shape == ref.shape == (5, 1 + 44100 // 1024, 128)
+    np.testing.assert_allclose(out, ref, atol=DB_ATOL, rtol=0)
+    np.testing.assert_array_equal(out, np.broadcast_to(out[:1], out.shape))
+    assert out.max() == pytest.approx(0.0, abs=1e-4) and out.min() >= -80.0
+
+
+def test_npy_features_round_trip_through_the_beat_detector(tmp_path):
+    """`separate_features(output_npy_path=...)` saves what it returns, and
+    `BeatDetector.detect` on that path gives the beats of the array and
+    deletes the file, unless told to keep it (JAX :236-241,
+    beat_detector.py:122-190)."""
+    from etude_tpu_torch.config import BeatDetectorConfig
+    from etude_tpu_torch.data.beat_detector import BeatDetector
+    from etude_tpu_torch.models.beat_transformer import BeatTransformerConfig
+    from etude_tpu_torch.weights import init_beat_params_np
+
+    wav = tmp_path / "mix.wav"
+    _tone_wav(wav, seconds=3.0)
+    npy = tmp_path / "feats" / "mix.npy"
+    features = sep.SourceSeparator(bypass=True, device="cpu").separate_features(
+        wav, output_npy_path=npy)
+    np.testing.assert_array_equal(np.load(npy), features)
+    config = BeatDetectorConfig()
+    config.model.dmodel, config.model.d_hid, config.model.nlayers = 32, 64, 3
+    params = init_beat_params_np(BeatTransformerConfig(dmodel=32, d_hid=64, nlayers=3),
+                                 seed=0, std=0.3)
+    detector = BeatDetector(config, params=params, device="cpu")
+    want = detector.detect(features)
+    assert detector.detect(npy, cleanup_input=False) == want
+    assert npy.exists()
+    out_json = tmp_path / "beat_pred.json"
+    assert detector.detect(npy, output_json_path=out_json) == want
+    assert not npy.exists() and out_json.exists()
