@@ -46,10 +46,38 @@ Phases, each announced with a flushed line when it starts and ends:
                     timing summary (audio decode, the concurrent stage 1+2
                     span with its stage spans, decode); 9 K2 launches and
                     some K1 launches
-  8. cli            `etude_tpu_torch.infer --decode-only` in-process on the
+  8. prepare        `etude_tpu_torch.prepare --start-from preprocess`
+                    in-process on a two-song corpus synthesized from seeds
+                    (240 s origin.wav piano renders; cover.wav the same
+                    notes transposed and time-warped), every model at full
+                    width under random weights with PREP_THRESHOLDS: the
+                    span of every stage and song (the first song cold, the
+                    second warm), 9 K2 launches per song, and the outputs
+                    checked (a kept alignment that recovers each cover's
+                    transposition and warp, notes, in-range token ids);
+                    then the coarse (1/16) and a full 30 s wavefront timed
+                    (warm wall, device kernels, device time), the aligner's
+                    spans on the 30 s pair, the hFT stride transcription's
+                    device time against its operation bound; and, each
+                    beside a control it must catch, card against CPU f32:
+                    chroma and onset features (tuning + a semitone), the
+                    wavefront's codes bit for bit (one cost row perturbed),
+                    the aligner's path and WPD (a segment re-warped), the
+                    hFT stride maps in bf16 within HFT_ATOL (one attention
+                    layer's output zeroed)
+  9. evaluate       `etude_tpu_torch.evaluate` in-process on the prepare
+                    phase's songs with three versions each (the cover with
+                    the notes it was rendered from; the cover with its
+                    stage-2 transcription; the pipeline phase's MIDI and
+                    its render): a CSV row per song and version with finite
+                    WPD, RGC and IPE (but where a metric declines what random
+                    weights give, for the reason it states: RGC the
+                    transcription, RGC and IPE a MIDI without notes), and
+                    the wall per song
+ 10. cli            `etude_tpu_torch.infer --decode-only` in-process on the
                     pipeline's work dir cut to its first 30 s of bars, with
                     synthetic condition notes, to a MIDI file that parses
-  9. train          `etude_tpu_torch.train` in-process at the published decoder
+ 11. train          `etude_tpu_torch.train` in-process at the published decoder
                     widths on dataset_distill/tokenized (500 songs, 1024-token
                     chunks) with configs/distill.yaml's train settings, 40
                     steps, `latest` saved every 20, host syncs an error in
@@ -63,7 +91,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     (labels shifted by one), a resume across an epoch within
                     the card's run-to-run spread (Adam moments zeroed), and
                     `--decode-only` serving the run's own export
- 10. aux_train      the backward kernel K2b against autograd of K2's plain
+ 12. aux_train      the backward kernel K2b against autograd of K2's plain
                     version at the training shape (B = 40, T = 512, all 9
                     dilations) and the serving shape (B = 5, T = 12,288,
                     three dilations), head7_bug both ways, timed, each
@@ -80,7 +108,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     against the CPU (labels shifted), and `--input` on a
                     30 s click track served from the phase's own exports
                     (loaded, no random weights; 9 K2 launches)
- 11. options        the serving CLI's other options, each check beside a
+ 13. options        the serving CLI's other options, each check beside a
                     control it must catch: `--decode-only --engine rebuild`
                     on the cli phase's work dir (K1 launches = the S = 1
                     steps counted from outside the engine x 8 layers; the
@@ -104,7 +132,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     7's keys from head 6 (control: without the compat)
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline, cli, train, aux_train and options runs,
+serving, structuralize, pipeline, prepare, cli, train, aux_train and options runs,
 each counted from 0 (K2b's: the aux_train beat run's), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
@@ -157,6 +185,29 @@ BYPASS_DB_ATOL = 1e-3
 QUANT_LOGIT_ATOL = 3e-2
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
+ORIGIN_SR, ALIGN_SR = 44100, 22050
+# The prepare phase's covers: the origin's notes shifted and swung by
+# ±WARP_SECONDS over WARP_PERIOD, which keeps the WP-Std of a grid through
+# the path under the filter's 1.0 s.
+WARP_SECONDS, WARP_PERIOD = 0.5, 60.0
+# Random weights score every frame alike: on a piano render (the port's CPU
+# f32 path, seed 0), the hFT's onset map sits at 0.48-0.64 and the
+# extractor's MPE map at 0.40-0.50, so at the published thresholds the
+# transcriber keeps no note and every note of the extractor falls under its
+# 0.08 s minimum duration; the stages after them would then have nothing to
+# tokenize. These thresholds, read by both CLIs, keep some: 9 and 19 notes
+# per second of a 3 s render on the CPU.
+PREP_THRESHOLDS = {"hft": {"infer": {"thred_onset": 0.63}},
+                   "extractor": {"infer": {"onset_threshold": 0.59, "frame_threshold": 0.42}}}
+# Card vs CPU f32 alignment features: the onsets divide differences of log
+# chroma by each frame's largest one and normalise, so they amplify the
+# f32 DFT's rounding; on the CPU, two GEMM libraries (XLA's and MKL's) give
+# chroma 5.5e-6 and onsets 5.5e-3 apart. A semitone of tuning moves both by
+# about 1.
+CHROMA_ATOL, ONSET_ATOL = 1e-4, 2e-2
+# Card vs CPU warping paths of a 30 s pair: largest gap in frames (20 ms
+# each) and WPD gap in seconds.
+PATH_FRAMES, WPD_ATOL = 2, 5e-3
 TRAIN_STEPS, TRAIN_SAVE_EVERY = 40, 20
 # 30 steps of the published decoder on one fixed micro-batch of 8 corpus
 # chunks (peak rate 2e-4 after 3 warmup steps) must lower its loss by this
@@ -575,10 +626,9 @@ def structuralize(root: Path, wav: Path) -> int:
     return launches
 
 
-def profile_device(run, warm_wall: float):
-    """One more warm run under torch.profiler: the device's busy time
-    against the unprofiled warm wall, and the kernels that take it; returns
-    the busy time in ms, or None when the profiler saw no device time."""
+def device_kernels(run):
+    """The device kernels of one call under torch.profiler (key averages)
+    and their device time in us."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -587,7 +637,14 @@ def profile_device(run, warm_wall: float):
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kernels)
+    return kernels, sum(e.self_device_time_total for e in kernels)
+
+
+def profile_device(run, warm_wall: float):
+    """One more warm run under torch.profiler: the device's busy time
+    against the unprofiled warm wall, and the kernels that take it; returns
+    the busy time in ms, or None when the profiler saw no device time."""
+    kernels, total_us = device_kernels(run)
     if total_us <= 0:
         say("  profiler: no device time recorded; device busy share not measured")
         return None
@@ -916,6 +973,483 @@ def pipeline(root: Path, wav: Path):
     if k1 == 0 or k1 % 8:
         raise RuntimeError(f"decode_attention launched {k1} times, not 8 per S=1 chunk")
     return work, k1, k2
+
+
+PREP_SONGS = ((10, 2, 0.2), (11, -3, 0.1))   # (seed, transposition, cover offset in s)
+
+
+def cover_warp(t, offset, bump=None):
+    """The cover's time for origin time t: shifted by `offset` and swung by
+    ±WARP_SECONDS over WARP_PERIOD; `bump` = (start, end, seconds) adds a
+    smooth detour of `seconds` between start and end (a re-warped
+    segment)."""
+    import numpy as np
+
+    w = t + offset + WARP_SECONDS * np.sin(2 * np.pi * t / WARP_PERIOD)
+    if bump is not None:
+        lo, hi, amount = bump
+        if lo < t < hi:
+            w += amount * np.sin(np.pi * (t - lo) / (hi - lo)) ** 2
+    return float(w)
+
+
+def pair_notes(seed, seconds, transpose, offset, bump=None):
+    """(origin notes, cover notes) from a seed: random piano notes, and the
+    same transposed by `transpose` semitones and time-warped by
+    `cover_warp`."""
+    import numpy as np
+    from etude_tpu_torch.data.synthetic import synth_piano_notes
+
+    notes = synth_piano_notes(np.random.default_rng(seed), seconds)
+    return notes, [{"onset": cover_warp(n["onset"], offset, bump),
+                    "offset": cover_warp(n["offset"], offset, bump),
+                    "pitch": min(max(n["pitch"] + transpose, 21), 108),
+                    "velocity": n["velocity"]} for n in notes]
+
+
+def render_pair(seed, seconds, transpose, offset, origin_sr=ORIGIN_SR, bump=None):
+    """(origin, cover): the piano renders of `pair_notes`, the cover at the
+    aligner's 22.05 kHz."""
+    from etude_tpu_torch.data.synthetic import render_piano
+
+    notes, cover_notes = pair_notes(seed, seconds, transpose, offset, bump)
+    return (render_piano(notes, seconds, sr=origin_sr),
+            render_piano(cover_notes, cover_warp(seconds, offset) + 0.5, sr=ALIGN_SR))
+
+
+def prepare_settings(root: Path) -> Path:
+    """The corpus dirs under `root`, every model path missing (random
+    weights from seed 0) and PREP_THRESHOLDS."""
+    settings = root / "prepare.json"
+    settings.write_text(json.dumps({
+        "paths": {"raw_dir": str(root / "raw"), "processed_dir": str(root / "processed"),
+                  "aligned_dir": str(root / "aligned"), "tokenized_dir": str(root / "tokenized"),
+                  "dataset_vocab": str(root / "vocab.json"),
+                  "hft_model": str(root / "no_hft.ckpt"),
+                  "separator_model": str(root / "no_separator.ckpt"),
+                  "beat_detector_model": str(root / "no_beat.ckpt"),
+                  "extractor_model": str(root / "no_extractor.ckpt")},
+        **PREP_THRESHOLDS,
+    }))
+    return settings
+
+
+def device_profile(run):
+    """(device kernels launched, their device time in ms) of one call;
+    (None, None) when the profiler saw no device time."""
+    kernels, total_us = device_kernels(run)
+    if total_us <= 0:
+        return None, None
+    return sum(e.count for e in kernels), total_us / 1e3
+
+
+def warm_wall(run) -> float:
+    """Wall seconds of a second, warm call."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def check_prepared(root: Path) -> None:
+    """The outputs of stages 2-5: transcriptions, beat grids, a kept
+    alignment per song that recovers the cover's known transposition and
+    warp, condition notes, the vocabulary and in-range token ids."""
+    import numpy as np
+    from etude_tpu_torch.data.vocab import Vocab
+
+    meta = json.loads((root / "aligned" / "metadata.json").read_text())
+    names = [f"{k + 1:04d}" for k in range(len(PREP_SONGS))]
+    if [m["dir_name"] for m in meta] != names or any(m["status"] != "kept" for m in meta):
+        raise RuntimeError(f"stage 3 did not keep every song: {meta}")
+    vocab = Vocab.load(root / "vocab.json")
+    for name, m, (seed, transpose, offset) in zip(names, meta, PREP_SONGS):
+        processed, aligned = root / "processed" / name, root / "aligned" / name
+        transcription = json.loads((processed / "transcription.json").read_text())
+        check_tempo(json.loads((processed / "tempo.json").read_text()), SONG_SECONDS)
+        align = json.loads((processed / "wp.json").read_text())["cover"]
+        wp = np.asarray(align["wp"], float)
+        if align["pitch_shift"] != -transpose:
+            raise RuntimeError(f"{name}: pitch shift {align['pitch_shift']}, the cover is "
+                               f"transposed by {transpose}")
+        # Origin time at the path's cover frames against the known warp.
+        origin_t, cover_t = wp[1] / 50.0, wp[0] / 50.0
+        grid = np.linspace(0.0, SONG_SECONDS, 2401)
+        expected = np.interp(cover_t, [cover_warp(t, offset) for t in grid], grid)
+        inner = (origin_t > 5.0) & (origin_t < SONG_SECONDS - 5.0)
+        if not inner.any():
+            raise RuntimeError(f"{name}: the path has no point inside the song")
+        dev = float(np.median(np.abs(origin_t[inner] - expected[inner])))
+        cover_notes = json.loads((aligned / "cover.json").read_text())
+        extract = json.loads((aligned / "extract.json").read_text())
+        # The extractor peak-picks its maps padded to the last 512-frame
+        # segment's end (as the reference does), so the last note's offset
+        # may lie past the song.
+        check_notes(extract, -(-(int(SONG_SECONDS * 16000) // 256 + 1) // 512) * 512 * 256 / 16000)
+        ids = {side: np.load(root / "tokenized" / name / f"{name}_{side}.npy")
+               for side in ("src", "tgt")}
+        say(f"  {name}: transcription.json {len(transcription)} notes; WP-Std "
+            f"{m['wp_std']:.4f} s; path {wp.shape[1]} points, pitch shift "
+            f"{align['pitch_shift']}, median |origin time - known warp| {dev:.4f} s; "
+            f"cover.json {len(cover_notes)} notes; extract.json {len(extract)} notes; "
+            f"tokens src {ids['src'].size}, tgt {ids['tgt'].size}")
+        if not (transcription and cover_notes and extract):
+            raise RuntimeError(f"{name}: a stage kept no note")
+        if dev > 0.2:
+            raise RuntimeError(f"{name}: the path is {dev:.3f} s from the known warp")
+        for side, x in ids.items():
+            if x.dtype != np.int32 or x.size == 0 or x.min() < 0 or x.max() >= len(vocab):
+                raise RuntimeError(f"{name}_{side}: {x.size} ids of {x.dtype} outside "
+                                   f"the vocabulary of {len(vocab)}")
+    say(f"  vocab.json: {len(vocab)} tokens")
+
+
+def wavefront_cost(origin, cover, device):
+    """cost(factor): the aligner's cost matrix of a pair at 22.05 kHz on
+    `device`, from its features (tuning, chroma, key shift) as
+    `compute_warping_path` builds them, averaged over `factor` frames
+    (16 is MrMsDTW's coarsest level, 1 the full DTW)."""
+    import numpy as np
+    from etude_tpu_torch.ops import chroma as ch
+    from etude_tpu_torch.ops.dtw import _smooth_downsample, dtw_cost
+
+    tc, to = ch.estimate_tuning(cover), ch.estimate_tuning(origin)
+    c_c, c_o = ch.chroma_features(cover, tuning_cents=tc, device=device)
+    o_c, o_o = ch.chroma_features(origin, tuning_cents=to, device=device)
+    shift = ch.optimal_chroma_shift(c_c, o_c)
+    o_c, o_o = np.roll(o_c, shift, axis=1), np.roll(o_o, shift, axis=1)
+    return lambda factor: dtw_cost(*_smooth_downsample(c_c, c_o, factor),
+                                   *_smooth_downsample(o_c, o_o, factor), device=device)
+
+
+def wavefront_timing(label, cost) -> None:
+    """The wavefront on one cost matrix on the card: warm wall, device
+    kernels and their time."""
+    from etude_tpu_torch.ops.dtw import _dtw_scan
+
+    N, M = cost.shape
+    wall = warm_wall(lambda: _dtw_scan(cost))
+    launches, busy = device_profile(lambda: _dtw_scan(cost))
+    say(f"  wavefront {label} [{N} x {M}], {N + M - 2} diagonals: warm wall "
+        f"{1e3 * wall:.2f} ms; " + (
+            f"{launches} device kernels ({launches / (N + M - 2):.2f} per diagonal), device "
+            f"busy {busy:.2f} ms, idle share {1 - busy / 1e3 / wall:.3f}"
+            if launches else "profiler saw no device time"))
+
+
+def hft_timing(root: Path) -> None:
+    """The hFT stride transcription of song 0001's 240 s cover on the card
+    at the HFT settings: warm wall and device time against the forward's
+    operation bound."""
+    import torch
+    from etude_tpu_torch.config import load_config
+    from etude_tpu_torch.data.hft import HFT_Transformer
+
+    config = load_config(root / "prepare.json")
+    hft = HFT_Transformer(config.hft, model_path=config.paths.hft_model, device="cuda",
+                          allow_random_weights=True)
+    feature = hft._wav2feature(root / "raw" / "0001" / "cover.wav")
+    wall = warm_wall(lambda: hft._transcript_stride(feature))
+    _, busy = device_profile(lambda: hft._transcript_stride(feature))
+    st, c = hft.stats, hft.amt_config
+    bf16, f32 = hft_operations(c, st["groups"] * hft.segment_batch)
+    bound_ms = 1e3 * (bf16 / BF16_PEAK + f32 / F32_PEAK)
+    say(f"  hFT stride transcription, {feature.shape[0]} frames: {st['segments']} windows of "
+        f"{c.n_frame + 2 * c.n_margin} frames in {st['groups']} groups of "
+        f"{hft.segment_batch}; warm wall {1e3 * wall:.2f} ms, device busy "
+        f"{busy or float('nan'):.2f} ms; {bf16 / 1e12:.2f} TFLOP bf16 + {f32 / 1e12:.3f} TFLOP "
+        f"f32 -> bound {bound_ms:.2f} ms ({(busy or float('nan')) / bound_ms:.1f}x)")
+    del hft
+    torch.cuda.empty_cache()
+
+
+def path_deviation(a, b) -> float:
+    """Largest gap, in origin frames, between two paths read as functions of
+    the cover frame."""
+    import numpy as np
+
+    grid = np.arange(max(a[0][-1], b[0][-1]) + 1)
+    return float(np.abs(np.interp(grid, a[0], a[1]) - np.interp(grid, b[0], b[1])).max())
+
+
+def align_parity() -> None:
+    """The card against the port's CPU f32 path on a 30 s pair, each check
+    beside a control that it must catch:
+
+    - chroma and onset features (control: the tuning shifted by a
+      semitone), within CHROMA_ATOL and ONSET_ATOL;
+    - the wavefront's codes on the CPU's cost matrix, equal bit for bit
+      (control: one row of the cost perturbed on the card);
+    - the aligner's path and WPD, within PATH_FRAMES and WPD_ATOL
+      (control: the cover with one segment re-warped by 0.6 s)."""
+    import numpy as np
+    import torch
+    from etude_tpu_torch.data.aligner import AudioAligner
+    from etude_tpu_torch.evaluation.metrics import WPDCalculator
+    from etude_tpu_torch.ops import chroma as ch
+    from etude_tpu_torch.ops.dtw import _dtw_scan
+
+    seed, transpose, offset = 12, 4, 0.15
+    origin, cover = render_pair(seed, 30.0, transpose, offset, origin_sr=ALIGN_SR)
+    tuning = ch.estimate_tuning(cover)
+    ref = ch.chroma_features(cover, tuning_cents=tuning, device="cpu")
+    got = ch.chroma_features(cover, tuning_cents=tuning, device="cuda")
+    moved = ch.chroma_features(cover, tuning_cents=tuning + 100.0, device="cuda")
+    gaps = [float(np.abs(g - r).max()) for g, r in zip(got, ref)]
+    controls = [float(np.abs(g - r).max()) for g, r in zip(moved, ref)]
+    say(f"  chroma / onset features [{ref[0].shape[0]}, 12], card vs CPU f32: max|diff| "
+        f"{gaps[0]:.3g} / {gaps[1]:.3g} (limits {CHROMA_ATOL} / {ONSET_ATOL}); control, "
+        f"tuning + 100 cents: {controls[0]:.3g} / {controls[1]:.3g}")
+    if gaps[0] > CHROMA_ATOL or gaps[1] > ONSET_ATOL:
+        raise RuntimeError(f"card vs CPU features differ by {gaps}")
+    if controls[0] <= CHROMA_ATOL or controls[1] <= ONSET_ATOL:
+        raise RuntimeError(f"the feature check missed its control ({controls})")
+
+    cost = wavefront_cost(origin, cover, "cpu")(1)
+    _, codes = _dtw_scan(cost)
+    final_card, codes_card = _dtw_scan(cost.cuda())
+    perturbed = cost.cuda()
+    perturbed[cost.shape[0] // 2] += 0.25
+    _, codes_control = _dtw_scan(perturbed)
+    equal = torch.equal(codes_card.cpu(), codes)
+    control_equal = torch.equal(codes_control.cpu(), codes)
+    say(f"  wavefront codes [{codes.shape[0]} x {codes.shape[1]}] uint8 on the CPU's cost "
+        f"[{cost.shape[0]} x {cost.shape[1]}]: card equal to CPU: {equal}; control, one row "
+        f"+0.25 on the card: equal {control_equal} "
+        f"({int((codes_control.cpu() != codes).sum())} codes differ)")
+    if not equal:
+        raise RuntimeError(f"card wavefront codes differ from the CPU's in "
+                           f"{int((codes_card.cpu() != codes).sum())} places")
+    if control_equal:
+        raise RuntimeError("the wavefront check missed its control")
+
+    wpd = WPDCalculator(trim_seconds=0)
+    cpu = AudioAligner(device="cpu").compute_warping_path(origin, cover)
+    card = AudioAligner(device="cuda").compute_warping_path(origin, cover)
+    _, rewarped = render_pair(seed, 30.0, transpose, offset, origin_sr=ALIGN_SR,
+                              bump=(10.0, 16.0, 0.6))
+    control = AudioAligner(device="cuda").compute_warping_path(origin, rewarped)
+    scores = [wpd.calculate(r)["wpd_score"] for r in (cpu, card, control)]
+    dev, control_dev = path_deviation(card["wp"], cpu["wp"]), path_deviation(
+        control["wp"], cpu["wp"])
+    say(f"  aligner path [{cpu['wp'].shape[1]} points], card vs CPU: largest gap {dev:.1f} "
+        f"frames (limit {PATH_FRAMES}), WPD {scores[1]:.5f} vs {scores[0]:.5f} s (limit "
+        f"{WPD_ATOL}); control, one segment re-warped by 0.6 s: gap {control_dev:.1f} "
+        f"frames, WPD {scores[2]:.5f} s; pitch shift {card['pitch_shift']} (cover "
+        f"transposed by {transpose})")
+    if dev > PATH_FRAMES or abs(scores[1] - scores[0]) > WPD_ATOL:
+        raise RuntimeError(f"card vs CPU alignment differs: {dev} frames, WPD {scores}")
+    if control_dev <= PATH_FRAMES or abs(scores[2] - scores[0]) <= WPD_ATOL:
+        raise RuntimeError(f"the alignment check missed its control ({control_dev} frames, "
+                           f"WPD {scores})")
+    if card["pitch_shift"] != -transpose:
+        raise RuntimeError(f"card pitch shift {card['pitch_shift']}")
+
+
+def hft_parity() -> None:
+    """The card's bf16 hFT stride maps against the port's CPU f32 path on
+    the first 96 frames of a 12 s cover render (three windows, one group
+    of four), same seeded weights, within HFT_ATOL, beside controls it must
+    catch: one attention layer's output zeroed at a time on the card."""
+    import numpy as np
+    import torch
+    import etude_tpu_torch.models.amt as amt
+    from etude_tpu_torch.config import HFTConfig
+    from etude_tpu_torch.data.hft import HFT_Transformer
+    from etude_tpu_torch.utils.audio import save_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "cover.wav"
+        save_wav(wav, render_pair(13, 12.0, 0, 0.0)[1], ALIGN_SR)
+        make = {device: HFT_Transformer(HFTConfig(), model_path=Path(tmp) / "none.ckpt",
+                                        segment_batch=4, device=device,
+                                        allow_random_weights=True)
+                for device in ("cpu", "cuda")}
+        feature = make["cpu"]._wav2feature(wav)[:96]
+    ref = make["cpu"]._transcript_stride(feature)
+    keys = [k for k in ref if not k.startswith("velocity")]
+
+    def gap(maps):
+        return max(float(np.abs(maps[k] - ref[k]).max()) for k in keys)
+
+    out = make["cuda"]._transcript_stride(feature)
+    if not all(np.isfinite(out[k]).all() and out[k].shape == ref[k].shape for k in ref):
+        raise RuntimeError("card hFT stride maps non-finite or of the wrong shape")
+    err = gap(out)
+    velocity = float((out["velocity_time"] != ref["velocity_time"]).mean())
+    model = make["cuda"].model
+    layers = ([(f"enc{i}", layer.attn) for i, layer in enumerate(model.enc_layers)]
+              + [("dec0.cross", model.dec_zero.cross)]
+              + [(f"dec{i + 1}.{n}", getattr(layer, a)) for i, layer in enumerate(model.dec_layers)
+                 for n, a in (("self", "self_attn"), ("cross", "cross"))]
+              + [(f"time{i}", layer.attn) for i, layer in enumerate(model.time_layers)])
+    real = amt._mha
+    controls = {}
+    try:
+        for name, target in layers:
+            def zeroed(q_in, kv_in, p, n_heads, dtype, target=target):
+                o = real(q_in, kv_in, p, n_heads, dtype)
+                return torch.zeros_like(o) if p is target else o
+            amt._mha = zeroed
+            controls[name] = gap(make["cuda"]._transcript_stride(feature))
+    finally:
+        amt._mha = real
+    say(f"  hFT stride maps [{feature.shape[0]} frames, 3 windows], card bf16 vs CPU f32: "
+        f"max|diff| {err:.3g} (atol {HFT_ATOL}), velocity argmax differs in {velocity:.2%}; "
+        "controls, one attention layer's output zeroed: "
+        + " ".join(f"{n} {v:.3g}" for n, v in controls.items()))
+    if err > HFT_ATOL:
+        raise RuntimeError(f"card vs CPU hFT stride maps differ by {err:.3g} > {HFT_ATOL}")
+    if min(controls.values()) <= HFT_ATOL:
+        raise RuntimeError(f"the stride-map check missed a control ({min(controls.values()):.3g})")
+
+
+def prepare_phase(root: Path) -> int:
+    """`python -m etude_tpu_torch.prepare --start-from preprocess` in-process
+    on a synthesized two-song corpus at 240 s, at full width under random
+    weights (PREP_THRESHOLDS), with the spans of every stage and song (song
+    0001 is cold, 0002 warm: stage 2 makes its models once); then the
+    wavefront and the hFT timed alone and the card-against-CPU checks.
+    Returns the run's K2 launches."""
+    import torch
+    from etude_tpu_torch import prepare
+    from etude_tpu_torch.ops.dilated_attention import dilated_attention
+    from etude_tpu_torch.utils.audio import decode_audio, save_wav
+    from etude_tpu_torch.utils.profiling import StageTimer
+
+    t = time.perf_counter()
+    for k, (seed, transpose, offset) in enumerate(PREP_SONGS):
+        origin, cover = render_pair(seed, SONG_SECONDS, transpose, offset)
+        save_wav(root / "raw" / f"{k + 1:04d}" / "origin.wav", origin, ORIGIN_SR)
+        save_wav(root / "raw" / f"{k + 1:04d}" / "cover.wav", cover, ALIGN_SR)
+    say(f"  corpus: {len(PREP_SONGS)} songs, {SONG_SECONDS:.0f} s origin.wav at {ORIGIN_SR} Hz, "
+        f"cover.wav transposed {[s[1] for s in PREP_SONGS]} and warped ±{WARP_SECONDS} s at "
+        f"{ALIGN_SR} Hz (set-up {time.perf_counter() - t:.2f} s); settings {PREP_THRESHOLDS}")
+    settings = prepare_settings(root)
+    timer = StageTimer(torch.device("cuda"))
+    dilated_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rc = prepare.main(["--config", str(settings), "--start-from", "preprocess",
+                       "--allow-random-weights"], timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dilated_attention.launches
+    say(f"  prepare --start-from preprocess: rc {rc}, wall {wall:.3f} s, K2 launches "
+        f"{launches} (expected {9 * len(PREP_SONGS)})")
+    for span in timer.spans:
+        say(f"    {span['name']:<40s} {1e3 * span['seconds']:10.2f} ms")
+    if rc != 0:
+        raise RuntimeError(f"prepare exited {rc}")
+    if launches != 9 * len(PREP_SONGS):
+        raise RuntimeError(f"dilated_attention launched {launches} times in stage 2, expected "
+                           f"9 per song")
+    check_prepared(root)
+
+    origin, _ = decode_audio(root / "raw" / "0001" / "origin.wav", target_sr=ALIGN_SR)
+    cover, _ = decode_audio(root / "raw" / "0001" / "cover.wav", target_sr=ALIGN_SR)
+    wavefront_timing("coarse (song 0001 at 1/16)", wavefront_cost(origin, cover, "cuda")(16))
+    n30 = 30 * ALIGN_SR
+    wavefront_timing("full (its first 30 s)",
+                     wavefront_cost(origin[:n30], cover[:n30], "cuda")(1))
+    from etude_tpu_torch.data.aligner import AudioAligner
+
+    spans = StageTimer(torch.device("cuda"))
+    AudioAligner(device="cuda").compute_warping_path(origin[:n30], cover[:n30], timer=spans)
+    say("  aligner on the 30 s pair (full wavefront): " + ", ".join(
+        f"{s['name']} {1e3 * s['seconds']:.2f} ms" for s in spans.spans))
+    hft_timing(root)
+    align_parity()
+    hft_parity()
+    return launches
+
+
+def evaluate_phase(root: Path, prepared: Path, midi: Path) -> None:
+    """`python -m etude_tpu_torch.evaluate` in-process on an eval dir of the
+    prepare phase's songs, each with origin.wav and three versions: `human`
+    (the cover's .wav and the notes it was rendered from, as a .mid),
+    `transcribed` (the same .wav and its stage-2 transcription .json) and
+    `etude_d` (the pipeline phase's MIDI and its render). Every row must
+    hold a finite WPD, RGC and IPE but where the metric itself declines, for
+    a reason that random weights give and that is printed: the
+    transcriber's onsets come in clusters of pitches on the same frames,
+    whose most common intervals lie under RGC's 0.01 s floor; the random
+    decoder runs every bar to its token cap without a note, so its MIDI has
+    no onset for RGC and IPE (its render is silence)."""
+    import csv
+    import math
+    import shutil
+
+    import torch
+    from etude_tpu_torch import evaluate
+    from etude_tpu_torch.data.synthetic import render_piano
+    from etude_tpu_torch.evaluation.metrics import IPECalculator, RGCCalculator
+    from etude_tpu_torch.utils.audio import save_wav
+    from etude_tpu_torch.utils.midi import read_midi_notes, write_midi
+    from etude_tpu_torch.utils.profiling import StageTimer
+
+    notes = read_midi_notes(midi)
+    render = render_piano(notes, max([n["offset"] + 1.0 for n in notes] + [SONG_SECONDS]),
+                          sr=ALIGN_SR)
+    names = [f"{k + 1:04d}" for k in range(len(PREP_SONGS))]
+    versions = ("human", "transcribed", "etude_d")
+    for name, (seed, transpose, offset) in zip(names, PREP_SONGS):
+        song = root / "songs" / name
+        song.mkdir(parents=True)
+        shutil.copy(prepared / "raw" / name / "origin.wav", song / "origin.wav")
+        for version in ("human", "transcribed"):
+            shutil.copy(prepared / "raw" / name / "cover.wav", song / f"{version}.wav")
+        write_midi(pair_notes(seed, SONG_SECONDS, transpose, offset)[1], song / "human.mid")
+        shutil.copy(prepared / "processed" / name / "transcription.json",
+                    song / "transcribed.json")
+        shutil.copy(midi, song / "etude_d.mid")
+        save_wav(song / "etude_d.wav", render, ALIGN_SR)
+    (root / "songs" / "metadata.json").write_text(json.dumps([{"dir_name": n} for n in names]))
+    settings = root / "evaluate.json"
+    settings.write_text(json.dumps({
+        "paths": {"eval_output_dir": str(root / "out")},
+        "eval": {"eval_dir": str(root / "songs"),
+                 "metadata_path": str(root / "songs" / "metadata.json"),
+                 "versions": {"human": "Human", "transcribed": "Transcribed (stage 2)",
+                              "etude_d": "Etude Decoder - Prompted"}},
+    }))
+    timer = StageTimer(torch.device("cuda"))
+    t = time.perf_counter()
+    rc = evaluate.main(["--config", str(settings)], timer=timer)
+    wall = time.perf_counter() - t
+    path = root / "out" / "evaluation_results.csv"
+    if rc != 0 or not path.exists():
+        raise RuntimeError(f"evaluate exited {rc}; {path} exists: {path.exists()}")
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    say(f"  evaluate: wall {wall:.3f} s for {len(names)} songs x {len(versions)} versions ("
+        + ", ".join(f"{s['name']} {s['seconds']:.3f} s" for s in timer.spans) + ")")
+    for row in rows:
+        say(f"    {row['song']} {row['version']:<12s} WPD {row['wpd']} RGC {row['rgc'] or '-'} "
+            f"IPE {row['ipe']}")
+    if [(r["song"], r["version"]) for r in rows] != [(n, v) for n in names for v in versions]:
+        raise RuntimeError(f"evaluation rows {[(r['song'], r['version']) for r in rows]}")
+    declines = {("transcribed", "rgc"): "could not infer a grid period"}
+    if not notes:
+        declines.update({("etude_d", "rgc"): "not enough onsets",
+                         ("etude_d", "ipe"): "not enough onsets"})
+    calculators = {"rgc": RGCCalculator(), "ipe": IPECalculator()}
+    for row in rows:
+        song, version = root / "songs" / row["song"], row["version"]
+        for key in ("wpd", "rgc", "ipe"):
+            if row[key] and math.isfinite(float(row[key])):
+                continue
+            if (version, key) in declines:
+                file = song / (f"{version}.json" if version == "transcribed" else f"{version}.mid")
+                reason = calculators[key].calculate(file).get("error")
+                if reason == declines[version, key]:
+                    say(f"    {row['song']} {version}: {key.upper()} declined ({reason})")
+                    continue
+            raise RuntimeError(f"{row['song']}/{version}: {key} is {row[key]!r}")
 
 
 def cli_work_dir(root: Path, src: Path, seconds: float) -> Path:
@@ -2183,6 +2717,7 @@ def main() -> int:
                "sustain_bin": (s // 9) % 3, "pitch_overlap_bin": 2}] * len(bars)
              for s in range(16)]
     main_C = engine.pack([bars] * 16, attrs)["cache_len"]
+    input_C = engine.pack([bars], attrs[:1])["cache_len"]   # one stream, as --input runs
 
     with phase("kernels"):
         from etude_tpu_torch.ops.decode_attention import max_cache_len
@@ -2191,6 +2726,12 @@ def main() -> int:
         flush = L2Flush()
         shapes = [(B, C) for B in (1, 16, 27) for C in (769, 1353)] + [(16, main_C)]
         rows = [check_kernel(B, C, seed, flush) for seed, (B, C) in enumerate(shapes)]
+        # `--input` decodes one stream: B = 1 at the stream engine's C.
+        input_row = check_kernel(1, input_C, 40, flush)
+        rows.append(input_row)
+        say(f"  decode_attention at the --input shape (B=1, C={input_C}): kernel "
+            f"{input_row['ms']:.4f} ms, masked SDPA {input_row['library_ms']:.4f} ms, plain "
+            f"{input_row['plain_ms']:.4f} ms, bound {input_row['bound_ms']:.4f} ms")
         # The cluster's edges (4 chunks of ceil(C / 4) slots): C = 1 leaves
         # three blocks with no slot, C = 7 one short chunk, C = 9 one empty;
         # the serving C at B = 1 and 27; the largest C the wrapper accepts.
@@ -2245,6 +2786,13 @@ def main() -> int:
             work, k1, k2 = pipeline(tmp / "pipeline", song)
             launches += k1
             k2_launches += k2
+
+        with phase("prepare"):
+            k2_launches += prepare_phase(tmp / "prepare")
+
+        with phase("evaluate"):
+            evaluate_phase(tmp / "evaluate", tmp / "prepare",
+                           tmp / "pipeline" / "outputs" / "infer" / "pipeline.mid")
 
         with phase("cli"):
             from etude_tpu_torch import infer

@@ -1,11 +1,12 @@
 """Settings of the ported paths (Extract, Structuralize, Decode, decoder
-training), as plain dataclasses.
+training, data preparation, evaluation), as plain dataclasses.
 
 Copied from the JAX package's pydantic schema (etude_tpu/config/schema.py:
 EnvConfig's seed and compute dtype :19-25, MeshConfig :28-42, the paths
-:46-65 (`checkpoints_dir` :47 holds `attr_prior/`), ExtractorConfig :71-125
+:46-68 (`checkpoints_dir` :47 holds `attr_prior/`), ExtractorConfig :71-125
 with its five sections, BeatDetectorConfig :140 with its model config,
-SeparatorConfig :154, DecoderConfig :196-217 and TrainConfig :234-273),
+SeparatorConfig :154, HFTConfig :172-193, DecoderConfig :196-217,
+PrepareConfig :221-232, TrainConfig :234-273 and EvalConfig :280-306),
 without pydantic: the port runs where neither pydantic nor PyYAML is
 installed. A settings file is read only when the caller names one: a `.json`
 file with the json module, anything else as YAML, which then needs PyYAML.
@@ -48,10 +49,20 @@ class PathConfig:
     decoder_model: Path = Path("checkpoints/decoder/latest.ckpt")
     decoder_config: Path = Path("checkpoints/decoder/etude_decoder_config.json")
     decoder_vocab: Path = Path("checkpoints/decoder/vocab.json")
+    hft_model: Path = Path("checkpoints/hft_transformer/latest.ckpt")
+
+    dataset_dir: Path = Path("dataset")
+    raw_dir: Path = Path("dataset/raw")
+    processed_dir: Path = Path("dataset/processed")
+    aligned_dir: Path = Path("dataset/aligned")
     tokenized_dir: Path = Path("dataset/tokenized")
     dataset_vocab: Path = Path("dataset/vocab.json")
+    dataset_csv: Path = Path("assets/dataset.csv")
+
+    outputs_dir: Path = Path("outputs")
     train_output_dir: Path = Path("outputs/train")
     infer_output_dir: Path = Path("outputs/infer")
+    eval_output_dir: Path = Path("outputs/evaluation")
 
 
 @dataclasses.dataclass
@@ -163,6 +174,36 @@ class SeparatorConfig:
 
 
 @dataclasses.dataclass
+class HFTInputConfig:
+    margin_b: int = 32
+    margin_f: int = 32
+    num_frame: int = 128
+    min_value: float = -80.0
+
+
+@dataclasses.dataclass
+class HFTInferConfig:
+    mode: str = "combination"
+    thred_mpe: float = 0.5
+    thred_onset: float = 0.75
+    thred_offset: float = 0.5
+    n_stride: int = 32
+    bpm: float = 120.0
+
+
+@dataclasses.dataclass
+class HFTConfig:
+    """The transcriber of dataset preparation: the extractor's model at the
+    reference hFT's settings (128-frame segments, stride 32)."""
+
+    feature: ExtractorFeatureConfig = dataclasses.field(
+        default_factory=ExtractorFeatureConfig)
+    input: HFTInputConfig = dataclasses.field(default_factory=HFTInputConfig)
+    midi: ExtractorMidiConfig = dataclasses.field(default_factory=ExtractorMidiConfig)
+    infer: HFTInferConfig = dataclasses.field(default_factory=HFTInferConfig)
+
+
+@dataclasses.dataclass
 class DecoderConfig:
     hidden_size: int = 512
     num_hidden_layers: int = 8
@@ -186,6 +227,23 @@ class DecoderConfig:
     # bar's prompt is left-padded to the smallest bucket that holds it.
     prompt_buckets: List[int] = dataclasses.field(
         default_factory=lambda: [128, 256, 512, 1024])
+
+
+@dataclasses.dataclass
+class PrepareAlignConfig:
+    wp_std_threshold: float = 1.0
+
+
+@dataclasses.dataclass
+class PrepareTokenizeConfig:
+    save_format: str = "npy"
+
+
+@dataclasses.dataclass
+class PrepareConfig:
+    align: PrepareAlignConfig = dataclasses.field(default_factory=PrepareAlignConfig)
+    tokenize: PrepareTokenizeConfig = dataclasses.field(
+        default_factory=PrepareTokenizeConfig)
 
 
 @dataclasses.dataclass
@@ -223,6 +281,33 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class EvalMetricsConfig:
+    wpd_subsample_step: int = 1
+    wpd_trim_seconds: int = 10
+    rgc_top_k: int = 8
+    ipe_n_gram: int = 8
+    ipe_n_clusters: int = 16
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    eval_dir: Path = Path("docs/songs")
+    metadata_path: Path = Path("docs/songs/metadata.json")
+    report_image_filename: str = "evaluation_summary.png"
+    report_csv_filename: str = "evaluation_results.csv"
+    versions: Dict[str, str] = dataclasses.field(default_factory=lambda: {
+        "human": "Human",
+        "etude_e": "Etude Extractor",
+        "etude_d_d": "Etude Decoder - Default",
+        "etude_d": "Etude Decoder - Prompted",
+        "picogen": "PiCoGen",
+        "amtapc": "AMT-APC",
+        "music2midi": "Music2MIDI",
+    })
+    metrics: EvalMetricsConfig = dataclasses.field(default_factory=EvalMetricsConfig)
+
+
+@dataclasses.dataclass
 class EtudeConfig:
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -231,8 +316,11 @@ class EtudeConfig:
     beat_detector: BeatDetectorConfig = dataclasses.field(
         default_factory=BeatDetectorConfig)
     separator: SeparatorConfig = dataclasses.field(default_factory=SeparatorConfig)
+    hft: HFTConfig = dataclasses.field(default_factory=HFTConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
+    prepare: PrepareConfig = dataclasses.field(default_factory=PrepareConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
 
 def _read_settings(path: Path) -> Dict[str, Any]:

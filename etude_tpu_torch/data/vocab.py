@@ -16,6 +16,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, List, Union
 
+import numpy as np
+
 PAD_TOKEN = "<PAD>"
 UNK_TOKEN = "<UNK>"
 BOS_TOKEN = "<BOS>"
@@ -61,6 +63,11 @@ class Vocab:
         self.id_to_token.append(token)
         return token_id
 
+    def build_from_events(self, event_sequences: Iterable[Iterable[Event]]) -> None:
+        for seq in event_sequences:
+            for event in seq:
+                self.add(str(event))
+
     # ---- encode / decode ----------------------------------------------
     def encode(self, token: Union[str, Event]) -> int:
         token_str = str(token)
@@ -96,6 +103,10 @@ class Vocab:
     def encode_sequence(self, sequence: Iterable[Union[str, Event]]) -> List[int]:
         return [self.encode(t) for t in sequence]
 
+    def decode_sequence(self, id_sequence: Iterable[int]) -> List[str]:
+        pad = self.pad_id
+        return [self.decode(i) for i in id_sequence if i != pad]
+
     def decode_sequence_to_events(self, id_sequence: Iterable[int]) -> List[Event]:
         pad = self.pad_id
         return [self.decode_to_event(i) for i in id_sequence if i != pad]
@@ -124,6 +135,24 @@ class Vocab:
             vocab.id_to_token[token_id] = token
         return vocab
 
+    def save_id_sequence(
+        self,
+        sequence: Iterable[Union[str, Event]],
+        filepath: Union[str, Path],
+        fmt: str = "npy",
+    ) -> None:
+        """Encode a token/Event sequence and persist it as npy or json."""
+        filepath = Path(filepath)
+        filepath.parent.mkdir(parents=True, exist_ok=True)
+        ids = self.encode_sequence(sequence)
+        if fmt == "npy":
+            np.save(filepath, np.asarray(ids, dtype=np.int32))
+        elif fmt == "json":
+            with open(filepath, "w", encoding="utf-8") as f:
+                json.dump(ids, f)
+        else:
+            raise ValueError(f"unsupported format {fmt!r} (use 'npy' or 'json')")
+
     # ---- helpers -------------------------------------------------------
     def __len__(self) -> int:
         return len(self.id_to_token)
@@ -139,3 +168,16 @@ class Vocab:
     @property
     def bar_eos_id(self) -> int:
         return self.token_to_id.get("Bar_EOS", -1)
+
+    # Method aliases for the reference CLI surface.
+    def encode_and_save_sequence(self, sequence, filepath, format: str = "npy"):
+        self.save_id_sequence(sequence, filepath, fmt=format)
+
+    def get_pad_id(self) -> int:
+        return self.pad_id
+
+    def get_bar_bos_id(self) -> int:
+        return self.bar_bos_id
+
+    def get_bar_eos_id(self) -> int:
+        return self.bar_eos_id

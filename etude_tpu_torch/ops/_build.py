@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface (`extern "C"` launchers that
 return `cudaGetLastError()`), so nvcc compiles it in seconds without
-PyTorch's headers. `native/<name>.cc` is host C++ (the DBN decoder), built
-with g++. Each shared library lands in `build/kernels/` at the repository
+PyTorch's headers. `native/<name>.cc` is host C++ (the DBN decoder, the
+aligner's banded DTW), built with g++. Each shared library lands in `build/kernels/` at the repository
 root (listed in .gitignore), named by a hash of its source directory and
 flags: a rebuild with unchanged sources is a cache hit. Nothing is built or
 loaded when this module is imported; the first use of a library builds it.
@@ -25,7 +25,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 NATIVE_DIR = PKG_DIR / "native"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 CUDA_SOURCES = ("decode_attention", "dilated_attention", "dilated_attention_bwd")  # csrc/<name>.cu
-HOST_SOURCES = ("dbn_viterbi",)                             # native/<name>.cc
+HOST_SOURCES = ("dbn_viterbi", "dtw_band")                 # native/<name>.cc
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

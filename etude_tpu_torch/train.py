@@ -69,7 +69,7 @@ def check_single_device(mesh) -> None:
         raise NotImplementedError(
             f"mesh settings {mesh} ask for multi-device training (data "
             "parallelism or FSDP), which etude_tpu_torch has not ported yet "
-            "(ROADMAP.md, Queue 1 item 7: multi-GPU training); the port "
+            "(ROADMAP.md, Queue 1 item 5: multi-GPU training); the port "
             "trains on one device (data_parallel -1 or 1, fsdp false)")
 
 

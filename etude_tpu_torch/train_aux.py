@@ -67,7 +67,7 @@ DEFAULTS = {"beat": (8, 5e-4), "amt": (4, 4e-4), "separator": (4, 1e-3)}
 EXPORT_NAMES = {"beat": "beat_detector", "amt": "extractor", "separator": "separator"}
 NOT_PORTED = ("needs the reference corpus (etude_tpu/data/corpus_render.py) or shards "
               "rendered from it, which this repository does not hold; it waits in "
-              "ROADMAP.md Queue 1 item 7 (aux training: the corpus modes)")
+              "ROADMAP.md Queue 1 item 5 (aux training: the corpus modes)")
 
 
 @dataclasses.dataclass
