@@ -108,7 +108,34 @@ Phases, each announced with a flushed line when it starts and ends:
                     against the CPU (labels shifted), and `--input` on a
                     30 s click track served from the phase's own exports
                     (loaded, no random weights; 9 K2 launches)
- 13. options        the serving CLI's other options, each check beside a
+ 13. recipe         the decoder's recipe through the scripts, at full width:
+                    `dagger_rollouts --batch 16` in-process on 16 corpus
+                    songs cut to 6 bars, from the train phase's export
+                    (wall, tok/s, K1 launches = the engine's S = 1 chunks
+                    x 8; one int32 file per song of 6 bars opening with
+                    Bar_BOS, ids in range; a second run without --force
+                    writes nothing; bars 0-1 equal a direct
+                    `generate_batch` at the script's shapes with the
+                    phase's global-edge bins, control: per-song edges);
+                    the DAgger fine-tune (configs/dagger.yaml's train
+                    settings, 4 steps) as a child of `supervise_train`:
+                    finite losses, no skip, chunks with rollout history
+                    (control: dagger_history false gives none), the
+                    child's CPU share per poll; `train_attr_prior` on all
+                    500 songs on the card (features and fit timed apart,
+                    held-out accuracy beside the majority baseline), the
+                    card's f64 fit against the CPU's on 30 songs (control:
+                    another seed), `--decode-only --attrs-prior` from it;
+                    the remap onto dataset_distill_r4's vocabulary
+                    (logits at the mapped columns and Note_103-105 within
+                    one bf16 ulp; control: padded without the remap);
+                    publish (f16) and `--decode-only` from it; the
+                    separation CLI on a 30 s click track from the
+                    aux_train phase's separator export, equal to
+                    `separate_features` bit for bit (control: another
+                    seed's track); `entry()` on the card, bf16 vs the
+                    CPU's f32 (control: one layer's attention zeroed)
+ 14. options        the serving CLI's other options, each check beside a
                     control it must catch: `--decode-only --engine rebuild`
                     on the cli phase's work dir (K1 launches = the S = 1
                     steps counted from outside the engine x 8 layers; the
@@ -132,7 +159,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     7's keys from head 6 (control: without the compat)
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline, prepare, cli, train, aux_train and options runs,
+serving, structuralize, pipeline, prepare, cli, train, aux_train, recipe and options runs,
 each counted from 0 (K2b's: the aux_train beat run's), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
@@ -262,6 +289,20 @@ AUX_LEARN_DROP = 0.5
 # update's.
 AUX_STEP_LIMITS = {"beat": {"bf16": (5e-3, 2e-2, 0.3)}, "amt": {"bf16": (5e-3, 2e-2, 0.2)},
                    "separator": {"bf16": (5e-3, 0.1, None), "f32": (1e-5, 1e-4, 0.05)}}
+# The recipe phase: the rollouts' songs (every RECIPE_STRIDE-th corpus song
+# with RECIPE_BARS bar pairs, cut to them), the DAgger fine-tune's steps, the
+# attribute prior's card-vs-CPU fit (songs, steps; f64 on both, weights
+# stored as f32: held to 1e-6 relative with a 1e-7 floor; equal bit for
+# bit on an H100, another seed 0.0198 away),
+# and the remap check's chunk of corpus tokens.
+RECIPE_SONGS, RECIPE_BARS, RECIPE_STRIDE, RECIPE_STEPS = 16, 6, 25, 4
+PRIOR_SUBSET_SONGS, PRIOR_STEPS, PRIOR_RTOL, PRIOR_ATOL = 30, 300, 1e-6, 1e-7
+REMAP_TOKENS = 256
+# `entry()`: the default decoder's logits (std about 0.45, largest 2.1,
+# under seed 0's weights), card bf16 against CPU f32, as LOGIT_ATOL and
+# LOGIT_RTOL hold the serving logits. Measured on an H100: 0.0234 (inside
+# through the relative term); zeroing layer 3's attention output: 0.66.
+ENTRY_ATOL, ENTRY_RTOL = LOGIT_ATOL, LOGIT_RTOL
 
 
 def say(msg: str) -> None:
@@ -1759,42 +1800,47 @@ def train_resume(root: Path, subset: Path, k: int):
     return out / "s1"
 
 
-def train_serve(run_dir: Path, cli_root: Path, name: str) -> int:
-    """`--decode-only` on the cli phase's work dir from a run's own export,
-    with no random-weight flag, to `name`.mid; returns the K1 launches."""
+def train_serve(run_dir: Path, cli_root: Path, name: str, model: str = "model",
+                checkpoints_dir: Optional[Path] = None) -> int:
+    """`--decode-only` on the cli phase's work dir from a run's own export
+    (`run_dir`/`model`, the config and vocabulary beside it), with no
+    random-weight flag, to `name`.mid; with `checkpoints_dir`, also
+    `--attrs-prior` from its `attr_prior/`. Returns the K1 launches."""
     from etude_tpu_torch import infer
     from etude_tpu_torch.ops.decode_attention import decode_attention
     from etude_tpu_torch.utils.midi import read_midi_notes
 
+    paths = {"infer_output_dir": str(cli_root / "outputs" / "infer"),
+             "decoder_model": str(run_dir / model),
+             "decoder_config": str(run_dir / "etude_decoder_config.json"),
+             "decoder_vocab": str(run_dir / "vocab.json")}
+    flags = []
+    if checkpoints_dir is not None:
+        paths["checkpoints_dir"] = str(checkpoints_dir)
+        flags = ["--attrs-prior"]
     settings = cli_root / f"{name}.json"
-    settings.write_text(json.dumps({
-        "paths": {"infer_output_dir": str(cli_root / "outputs" / "infer"),
-                  "decoder_model": str(run_dir / "model"),
-                  "decoder_config": str(run_dir / "etude_decoder_config.json"),
-                  "decoder_vocab": str(run_dir / "vocab.json")},
-        "decoder": {"max_bar_token_limit": 32},
-    }))
+    settings.write_text(json.dumps({"paths": paths, "decoder": {"max_bar_token_limit": 32}}))
     decode_attention.launches = 0
     rc = infer.main(["--config", str(settings), "--decode-only", "--output_name", name,
-                     "--seed", "7"])
+                     "--seed", "7", *flags])
     launches = decode_attention.launches
     out = cli_root / "outputs" / "infer" / f"{name}.mid"
     if rc != 0 or not out.exists():
         raise RuntimeError(f"infer from the trained export exited {rc}; {out} exists: "
                            f"{out.exists()}")
     notes = read_midi_notes(out)
-    say(f"  served from {run_dir / 'model'}: {out.name} {out.stat().st_size} bytes, "
+    say(f"  served from {run_dir / model}: {out.name} {out.stat().st_size} bytes, "
         f"{len(notes)} notes; K1 launches {launches}")
     if launches == 0 or launches % 8:
         raise RuntimeError(f"decode_attention launched {launches} times, not 8 per S=1 chunk")
     return launches
 
 
-def train_phase(root: Path, cli_root: Path) -> int:
-    """The train phase; returns the K1 launches of serving the exports: the
-    main run's (40 steps, its rate still below 2.2e-6 in its warmup) and
-    the resume check's first straight run's (42 steps on 7 songs, warmed up
-    to 2e-4)."""
+def train_phase(root: Path, cli_root: Path):
+    """The train phase; returns the K1 launches of serving the exports (the
+    main run's: 40 steps, its rate still below 2.2e-6 in its warmup; the
+    resume check's first straight run's: 42 steps on 7 songs, warmed up to
+    2e-4) and the latter run's directory, for the recipe phase."""
     import itertools
 
     import torch
@@ -1830,7 +1876,7 @@ def train_phase(root: Path, cli_root: Path) -> int:
     torch.cuda.empty_cache()
     trained = train_resume(root / "resume", subset, k)
     return (train_serve(run.ckpt_dir, cli_root, "trained")
-            + train_serve(trained, cli_root, "trained_subset"))
+            + train_serve(trained, cli_root, "trained_subset")), trained
 
 
 def check_dilated_backward(B, T, dilation, seed, flush, head7_bug=False):
@@ -2155,7 +2201,8 @@ def aux_serve(root: Path, exports: Path) -> int:
 
 
 def aux_train_phase(root: Path, flush):
-    """The aux_train phase; returns (K2 launches, K2b launches, K2b rows)."""
+    """The aux_train phase; returns (K2 launches, K2b launches, K2b rows,
+    the separator's export)."""
     import torch
 
     # K2's forward at the training shape first: its backward rests on it.
@@ -2182,7 +2229,450 @@ def aux_train_phase(root: Path, flush):
         aux_parity(mode)
         torch.cuda.empty_cache()
     k2 += aux_serve(root / "serve", exports)
-    return k2, k2b, rows
+    return k2, k2b, rows, exports / "separator" / "latest"
+
+
+# ---------------------------------------------------------------- recipe
+def recipe_dataset(root: Path) -> Path:
+    """RECIPE_SONGS corpus songs, every RECIPE_STRIDE-th with at least
+    RECIPE_BARS bar pairs (variants of one base song are adjacent and bin
+    alike), their `_src`/`_tgt` cut to the first RECIPE_BARS bars, with the
+    corpus vocabulary: the full songs' width, a smaller depth."""
+    import numpy as np
+    from etude_tpu_torch.data.dataset import split_ids_into_bars
+    from etude_tpu_torch.data.vocab import Vocab
+
+    vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
+    corpus = sorted((ROOT / "dataset_distill/tokenized").iterdir())[::RECIPE_STRIDE]
+    picked = 0
+    for song in corpus:
+        cut = {}
+        for kind in ("src", "tgt"):
+            ids = np.load(song / f"{song.name}_{kind}.npy")
+            bars = split_ids_into_bars(ids.astype(int).tolist(), vocab.bar_bos_id,
+                                       vocab.bar_eos_id)[:RECIPE_BARS]
+            cut[kind] = np.asarray([t for b in bars for t in b], ids.dtype), len(bars)
+        if min(n for _, n in cut.values()) < RECIPE_BARS:
+            continue
+        (root / "tokenized" / song.name).mkdir(parents=True)
+        for kind, (ids, _) in cut.items():
+            np.save(root / "tokenized" / song.name / f"{song.name}_{kind}.npy", ids)
+        picked += 1
+        if picked == RECIPE_SONGS:
+            (root / "vocab.json").write_bytes((ROOT / "dataset_distill/vocab.json").read_bytes())
+            return root
+    raise RuntimeError(f"the corpus holds {picked} songs of {RECIPE_BARS} bars at this stride")
+
+
+def engine_bars(flat, bos, eos, max_new):
+    """A rollout file's bars by the engine's contract: Bar_BOS, then tokens
+    up to and including Bar_EOS or `max_new` of them."""
+    bars, p = [], 0
+    while p < len(flat):
+        if flat[p] != bos:
+            raise RuntimeError(f"a rollout bar opens with {flat[p]} at {p}, not Bar_BOS")
+        end = p + 1
+        while end < len(flat) and end - p - 1 < max_new:
+            end += 1
+            if flat[end - 1] == eos:
+                break
+        bars.append(list(flat[p:end]))
+        p = end
+    return bars
+
+
+def recipe_rollouts(root: Path, run_dir: Path):
+    """`dagger_rollouts --batch 16` in-process on RECIPE_SONGS songs cut to
+    RECIPE_BARS bars, from the train phase's export at full width; checks
+    beside their controls. Returns (dataset dir, K1 launches)."""
+    import numpy as np
+    import torch
+    from etude_tpu_torch.data.dataset import calculate_bin_edges, split_ids_into_bars
+    from etude_tpu_torch.data.vocab import Vocab
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+    from etude_tpu_torch.scripts import dagger_rollouts
+    from etude_tpu_torch.utils.model_loader import load_etude_decoder
+
+    data = recipe_dataset(root / "data")
+    vocab = Vocab.load(data / "vocab.json")
+    argv = ["--run", str(run_dir), "--dataset-dir", str(data), "--batch", "16"]
+    decode_attention.launches = 0
+    t = time.perf_counter()
+    run = dagger_rollouts.run(argv)
+    wall = time.perf_counter() - t
+    launches = decode_attention.launches
+    model, config = load_etude_decoder(run_dir / "etude_decoder_config.json", run_dir / "model")
+    layers = config.num_hidden_layers
+    generated = run.tokens - run.bars
+    say(f"  rollouts: {len(run.written)} songs x {RECIPE_BARS} bars at full width, 16 streams: "
+        f"{wall:.2f} s in the script ({run.seconds:.2f} s generating); {run.bars} bars, "
+        f"{run.tokens} tokens ({generated / run.bars:.1f} generated per bar) = "
+        f"{generated / run.seconds:.1f} tok/s; {run.single_token_chunks} S=1 chunks, "
+        f"{1e3 * run.seconds / run.single_token_chunks:.3f} ms each; K1 launches {launches} "
+        f"(expected {run.single_token_chunks * layers})")
+    if launches == 0 or launches != run.single_token_chunks * layers:
+        raise RuntimeError(f"the rollouts launched K1 {launches} times, expected "
+                           f"{run.single_token_chunks} x {layers}")
+    if len(run.written) != RECIPE_SONGS:
+        raise RuntimeError(f"the rollouts wrote {len(run.written)} files")
+    engine = StreamingGenerationEngine(config, bar_bos_id=vocab.bar_bos_id,
+                                       bar_eos_id=vocab.bar_eos_id, pad_id=vocab.pad_id)
+    files = {}
+    for path in run.written:
+        flat = np.load(path)
+        bars = engine_bars(flat.tolist(), vocab.bar_bos_id, vocab.bar_eos_id,
+                           engine.max_bar_token_limit)
+        if flat.dtype != np.int32 or len(bars) != RECIPE_BARS or flat.max() >= len(vocab) \
+                or flat.min() < 0:
+            raise RuntimeError(f"{path}: {flat.dtype}, {len(bars)} bars, ids {flat.min()}.."
+                               f"{flat.max()}")
+        files[path.parent.name] = (bars, path.stat().st_mtime_ns)
+    # The training dataset keeps a rollout whose Bar_BOS-split bars pair
+    # 1:1 with the teacher's (a generated Bar_BOS inside a bar breaks that).
+    usable = sum(len(split_ids_into_bars(np.load(p).tolist(), vocab.bar_bos_id,
+                                         vocab.bar_eos_id)) == RECIPE_BARS
+                 for p in run.written)
+    say(f"  rollout files: {len(files)} of {RECIPE_BARS} bars each, int32, ids in range; "
+        f"{usable} pair 1:1 with the teacher's bars (usable as DAgger history)")
+
+    again = dagger_rollouts.run(argv)
+    kept = all(p.stat().st_mtime_ns == files[p.parent.name][1] for p in run.written)
+    say(f"  a second run without --force wrote {len(again.written)} files; mtimes kept: {kept}")
+    if again.written or not kept:
+        raise RuntimeError("the second rollout run rewrote files")
+
+    # The script's bars 0-1 against a direct generate_batch on the same 16
+    # streams (the script's order) with the phase's own global-edge bins, at
+    # the script's condition bucket so every chunk has the script's shapes.
+    songs = dagger_rollouts.load_songs(data / "tokenized", vocab)
+    songs.sort(key=lambda s: len(s["src_bars"]), reverse=True)
+    edges = calculate_bin_edges([a for s in songs for a in s["attrs"]])
+    own = [dagger_rollouts.bin_maps(s["attrs"], calculate_bin_edges(s["attrs"])) for s in songs]
+    glob = [dagger_rollouts.bin_maps(s["attrs"], edges) for s in songs]
+    moved = [n for n, (a, b) in enumerate(zip(own, glob)) if a[:2] != b[:2]]
+    if not moved:
+        raise RuntimeError("per-song edges bin the first two bars as the global ones do")
+    X = engine.pack([s["src_bars"] for s in songs], glob)["X"]
+    direct = StreamingGenerationEngine(config, bar_bos_id=vocab.bar_bos_id,
+                                       bar_eos_id=vocab.bar_eos_id, pad_id=vocab.pad_id,
+                                       x_len_buckets=(X,))
+    heads = [s["src_bars"][:2] for s in songs]
+    t = time.perf_counter()
+    got = direct.generate_batch(model, heads, [g[:2] for g in glob])
+    control = direct.generate_batch(model, heads, [o[:2] for o in own])
+    torch.cuda.synchronize()
+    script = [files[s["dir"].name][0][:2] for s in songs]
+    same = sum(a == b for a, b in zip(got, script))
+    ctrl = sum(a == b for a, b in zip(control, script))
+    say(f"  direct generate_batch (bars 0-1, 16 streams, X = {X}, {time.perf_counter() - t:.2f} s "
+        f"for two runs): {same}/16 streams equal the script's files; control, bins from "
+        f"per-song edges (differing in bars 0-1 for {len(moved)} songs): {ctrl}/16 equal")
+    if same != RECIPE_SONGS:
+        raise RuntimeError("the script's rollouts differ from a direct generate_batch")
+    if ctrl == RECIPE_SONGS:
+        raise RuntimeError("the rollout check missed its control (per-song edges)")
+    return data, launches
+
+
+def finetune_settings(root: Path, data: Path, init_from: Path, dagger: bool) -> Path:
+    """configs/dagger.yaml's train settings as .json (5 epochs, batch 8 x
+    accumulation 4, rate 3e-5 with no warmup, rollout history, warm start)
+    on `data`, the decoder at the published widths."""
+    settings = root / f"dagger_{dagger}.json"
+    settings.write_text(json.dumps({
+        "paths": {"dataset_vocab": str(data / "vocab.json"),
+                  "tokenized_dir": str(data / "tokenized"),
+                  "train_output_dir": str(root / "out")},
+        "train": {"num_epochs": 5, "batch_size": 8, "gradient_accumulation_steps": 4,
+                  "learning_rate": 3.0e-5, "warmup_epochs": 0, "dagger_history": dagger,
+                  "init_from": str(init_from)},
+    }))
+    return settings
+
+
+def recipe_finetune(root: Path, data: Path, init_from: Path) -> Path:
+    """The DAgger fine-tune: the train CLI as a child of supervise_train,
+    RECIPE_STEPS steps on the rollouts' dataset; its chunks with rollout
+    history beside a control without `dagger_history`. Returns the run."""
+    import math
+    import re
+    import shlex
+
+    from etude_tpu_torch import train
+    from etude_tpu_torch.scripts import supervise_train
+
+    root.mkdir(parents=True)
+    run_dir, log = root / "out" / "dagger", root / "child.log"
+    child = (f"exec {shlex.quote(sys.executable)} -m etude_tpu_torch.train \"$@\" "
+             f"2>{shlex.quote(str(log))}")
+    shares = []
+    t = time.perf_counter()
+    code = supervise_train.run(
+        ["--ckpt-dir", str(run_dir), "--poll-seconds", "1", "--",
+         "bash", "-c", child, "train", "--config",
+         str(finetune_settings(root, data, init_from, True)), "--run-id", "dagger",
+         "--max-steps", str(RECIPE_STEPS)],
+        on_poll=lambda burn, poll: shares.append(burn / poll))
+    wall = time.perf_counter() - t
+    text = log.read_text()
+    history = [tuple(map(int, m)) for m in re.findall(r"history: (\d+)/(\d+) chunks", text)]
+    metrics = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    say(f"  DAgger fine-tune under supervise_train: exit {code} in {wall:.2f} s (the child's "
+        f"start, load, {RECIPE_STEPS} steps, saves, export); the child's CPU share per 1 s "
+        f"poll: {' '.join(f'{s:.2f}' for s in shares)}")
+    say(f"  metrics.jsonl: {metrics}; chunks with rollout history: {history[-1] if history else None}")
+    if code != 0:
+        say(text[-3000:])
+        raise RuntimeError(f"the supervised fine-tune exited {code}")
+    if not all(math.isfinite(m["loss"]) for m in metrics) or metrics[-1]["skipped_updates"] \
+            or metrics[-1]["step"] != RECIPE_STEPS:
+        raise RuntimeError(f"the fine-tune's metrics: {metrics}")
+    if not history or history[-1][0] == 0:
+        raise RuntimeError("no fine-tune chunk took the rollout history")
+    control = train.run(["--config", str(finetune_settings(root, data, init_from, False)),
+                         "--run-id", "control", "--max-steps", "1"])
+    say(f"  control, dagger_history false: {control.rollout_chunks}/{control.chunks} chunks")
+    if control is None or control.rollout_chunks != 0 or control.chunks == 0:
+        raise RuntimeError("the control fine-tune drew rollout history")
+    return run_dir
+
+
+def recipe_prior(root: Path, run_dir: Path, cli_root: Path) -> int:
+    """`train_attr_prior` on all 500 songs on the card; the card's f64 fit
+    against the CPU's on a subset (another seed the control); then
+    `--decode-only --attrs-prior` from the new prior. Returns K1 launches."""
+    import shutil
+
+    import numpy as np
+    from etude_tpu_torch.data.dataset import EtudeDataset
+    from etude_tpu_torch.data.vocab import Vocab
+    from etude_tpu_torch.models.attr_prior import AttrPrior
+    from etude_tpu_torch.scripts import train_attr_prior
+
+    run = train_attr_prior.run(["--out", str(root / "attr_prior")])
+    meta = run.meta
+    say(f"  attribute prior, {meta['bar_pairs']} bar pairs of {meta['songs']} songs: features "
+        f"{run.feature_seconds:.2f} s on the host (the edges' dataset load included), fit "
+        f"{meta['steps']} steps {run.fit_seconds:.2f} s on the card (f64)")
+    say(f"  held-out accuracy {meta['heldout_accuracy']}; majority baseline "
+        f"{meta['majority_baseline']}")
+
+    subset = root / "subset"
+    for song in sorted((ROOT / "dataset_distill/tokenized").iterdir())[:PRIOR_SUBSET_SONGS]:
+        shutil.copytree(song, subset / song.name, ignore=shutil.ignore_patterns("*_hist.npy"))
+    vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
+    edges = EtudeDataset(subset, vocab, max_seq_len=1024).attribute_bin_edges
+    X, y, _, _ = train_attr_prior.bar_pairs(subset, vocab, edges)
+
+    def gap(a, b):
+        return max(float(np.max(np.abs(a.weights[n] - b.weights[n]) - PRIOR_ATOL
+                                - PRIOR_RTOL * np.abs(b.weights[n]))) for n in b.weights)
+
+    host = AttrPrior.fit(X, y, steps=PRIOR_STEPS, seed=0, device="cpu")
+    card = AttrPrior.fit(X, y, steps=PRIOR_STEPS, seed=0, device="cuda")
+    other = AttrPrior.fit(X, y, steps=PRIOR_STEPS, seed=1, device="cuda")
+    same_stats = np.array_equal(card.mean, host.mean) and np.array_equal(card.std, host.std)
+    diff = max(float(np.max(np.abs(card.weights[n] - host.weights[n]))) for n in host.weights)
+    ctrl = max(float(np.max(np.abs(other.weights[n] - host.weights[n]))) for n in host.weights)
+    say(f"  fit, card vs CPU (f64, {len(X)} rows of {PRIOR_SUBSET_SONGS} songs, {PRIOR_STEPS} "
+        f"steps): weights max|diff| {diff:.3g} (limit {PRIOR_ATOL:g} + {PRIOR_RTOL:g} x |w|), "
+        f"mean/std equal "
+        f"{same_stats}; control, seed 1 on the card: {ctrl:.3g}")
+    if gap(card, host) > 0 or not same_stats:
+        raise RuntimeError(f"the card's prior fit differs from the CPU's by {diff:.3g}")
+    if gap(other, host) <= 0:
+        raise RuntimeError("the prior check missed its control (seed 1)")
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+
+    seen = {}
+    real = StreamingGenerationEngine.generate
+
+    def spy(self, m, bars, attrs, **kw):
+        seen["bars"], seen["attrs"] = bars, attrs
+        return real(self, m, bars, attrs, **kw)
+
+    StreamingGenerationEngine.generate = spy
+    try:
+        launches = train_serve(run_dir, cli_root, "recipe_prior", checkpoints_dir=root)
+    finally:
+        StreamingGenerationEngine.generate = real
+    want = AttrPrior.load(root / "attr_prior").predict_bins(seen["bars"], vocab, seed=7)
+    say(f"  --attrs-prior from the new prior: the engine's per-bar bins equal its "
+        f"predictions: {seen['attrs'] == want}")
+    if seen["attrs"] != want:
+        raise RuntimeError("--attrs-prior did not condition on the new prior's bins")
+    return launches
+
+
+def recipe_remap(root: Path, run_dir: Path) -> None:
+    """`remap_decoder_warmstart` of the fine-tuned run onto
+    dataset_distill_r4's vocabulary; teacher-forced logits of a corpus chunk
+    of shared tokens: the remapped model's at the mapped columns equal the
+    original's within one bf16 ulp of the largest |logit|, Note_103-105's
+    equal Note_102's; the control pads the original to 119 without the
+    remap."""
+    import numpy as np
+    import torch
+    from etude_tpu_torch.data.vocab import Vocab
+    from etude_tpu_torch.models.decoder import ATTRIBUTE_ORDER
+    from etude_tpu_torch.scripts import remap_decoder_warmstart
+    from etude_tpu_torch.utils.model_loader import load_etude_decoder
+    from etude_tpu_torch.utils.training import load_params_only
+    from etude_tpu_torch.weights import decoder_from_jax
+
+    old_vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
+    new_vocab = Vocab.load(ROOT / "dataset_distill_r4/vocab.json")
+    out = root / "remap"
+    t = time.perf_counter()
+    rc = remap_decoder_warmstart.main(["--run", str(run_dir), "--old-vocab",
+                                       str(ROOT / "dataset_distill/vocab.json"), "--new-vocab",
+                                       str(ROOT / "dataset_distill_r4/vocab.json"), "--out",
+                                       str(out)])
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise RuntimeError(f"remap_decoder_warmstart exited {rc}")
+    original, config = load_etude_decoder(run_dir / "etude_decoder_config.json", run_dir / "model")
+    remapped, new_config = load_etude_decoder(out / "etude_decoder_config.json", out / "model")
+    params = load_params_only(run_dir / "model")
+    pad = len(new_vocab) - len(old_vocab)
+    params["word_emb"] = np.pad(params["word_emb"], ((0, pad), (0, 0)))
+    params["lm_head"] = np.pad(params["lm_head"], ((0, 0), (0, pad)))
+    padded = decoder_from_jax(params, new_config, "cuda")
+
+    ids = np.load(ROOT / "dataset_distill/tokenized/0001/0001_tgt.npy")[:REMAP_TOKENS]
+    shared = [t for t in old_vocab.token_to_id if t in new_vocab.token_to_id]
+    old_ids = [old_vocab.token_to_id[t] for t in shared]
+    new_ids = [new_vocab.token_to_id[t] for t in shared]
+    to_new = dict(zip(old_ids, new_ids))
+    if not all(int(i) in to_new for i in ids):
+        raise RuntimeError("the remap chunk holds a token the new vocabulary lacks")
+
+    def logits(model, tokens):
+        tok = torch.tensor(np.asarray(tokens)[None], dtype=torch.long, device="cuda")
+        ones = torch.ones_like(tok)
+        with torch.no_grad():
+            return model(tok, ones, {n: ones for n in ATTRIBUTE_ORDER}, ones).float().cpu()
+
+    ref = logits(original, ids)[..., old_ids]
+    ulp = float(np.spacing(np.float32(ref.abs().max().item()))) * 2 ** 16   # bf16: 8 bits
+    new_tokens = [to_new[int(i)] for i in ids]
+    added = [new_vocab.token_to_id[t] for t in ("Note_103", "Note_104", "Note_105")]
+    n102 = new_vocab.token_to_id["Note_102"]
+
+    def check(model):
+        out = logits(model, new_tokens)
+        return (max(float((out[..., new_ids] - ref).abs().max()),
+                    max(float((out[..., a] - out[..., n102]).abs().max()) for a in added)))
+
+    got, control = check(remapped), check(padded)
+    say(f"  remap {len(old_vocab)} -> {len(new_vocab)} tokens in {wall:.2f} s; teacher-forced "
+        f"logits of {len(ids)} shared tokens (bf16 forward), mapped columns and Note_103-105 "
+        f"against Note_102: max|diff| {got:.3g} (limit one bf16 ulp of max|logit| {ulp:.3g}); "
+        f"control, padded without the remap: {control:.3g}")
+    if got > ulp:
+        raise RuntimeError(f"the remapped logits differ by {got:.3g}")
+    if control <= ulp:
+        raise RuntimeError("the remap check missed its control")
+
+
+def recipe_separation(root: Path, separator: Path) -> None:
+    """`run_separation` on a 30 s click track from the aux_train phase's
+    separator export: its .npy equals an in-process `separate_features` on
+    the same file bit for bit; another seed's track (the control) differs."""
+    import numpy as np
+    from etude_tpu_torch.data.separation import SourceSeparator
+    from etude_tpu_torch.scripts import run_separation
+
+    root.mkdir(parents=True)
+    wav, other = root / "click.wav", root / "other.wav"
+    write_click_wav(wav, AUX_SERVE_SECONDS, seed=5)
+    write_click_wav(other, AUX_SERVE_SECONDS, seed=6)
+    t = time.perf_counter()
+    rc = run_separation.main(["--input", str(wav), "--output", str(root / "cli.npy"),
+                              "--model", str(separator)])
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise RuntimeError(f"run_separation exited {rc}")
+    cli = np.load(root / "cli.npy")
+    sep = SourceSeparator(model_path=separator, device="cuda")
+    direct = sep.separate_features(wav)
+    control = sep.separate_features(other)
+    same = cli.shape == direct.shape and np.array_equal(cli, direct)
+    moved = cli.shape != control.shape or not np.array_equal(cli, control)
+    say(f"  run_separation on a {AUX_SERVE_SECONDS:.0f} s click track: {wall:.2f} s, {cli.shape} "
+        f"{cli.dtype}; equal to separate_features bit for bit: {same}; control, seed 6's "
+        f"track, differs: {moved}")
+    if not same or cli.dtype != np.float32 or cli.shape[0] != 5 or cli.shape[2] != 128:
+        raise RuntimeError("the separation CLI's features differ from separate_features")
+    if not moved:
+        raise RuntimeError("the separation check missed its control")
+
+
+def recipe_entry() -> None:
+    """`entry()` on the card (bf16) against the CPU's f32 forward within
+    ENTRY_ATOL + ENTRY_RTOL x |logit|; the control zeroes one layer's
+    attention output."""
+    import torch
+    from etude_tpu_torch.entry import entry
+
+    fn, args = entry()
+    fn_cpu, args_cpu = entry("cpu")
+    card = fn(*args).cpu()
+    host = fn_cpu(*args_cpu)
+    with zeroed_attention(args[0], 3):
+        control = fn(*args).cpu()
+
+    def excess(a):
+        return float(((a - host).abs() - (ENTRY_ATOL + ENTRY_RTOL * host.abs())).max())
+
+    gap, moved = float((card - host).abs().max()), float((control - host).abs().max())
+    say(f"  entry(): logits {tuple(card.shape)} {card.dtype}, finite "
+        f"{bool(card.isfinite().all())}; card bf16 vs CPU f32 max|diff| {gap:.3g} (atol "
+        f"{ENTRY_ATOL}, rtol {ENTRY_RTOL}); control, layer 3's attention output zeroed: "
+        f"{moved:.3g}")
+    if tuple(card.shape) != (2, 64, 3000) or not bool(card.isfinite().all()) or excess(card) > 0:
+        raise RuntimeError(f"entry(): card logits off by {gap:.3g}")
+    if excess(control) <= 0:
+        raise RuntimeError("the entry() check missed its control")
+
+
+def recipe_phase(root: Path, run_dir: Path, separator: Path, cli_root: Path) -> int:
+    """The recipe phase; returns its K1 launches (rollouts, --attrs-prior,
+    the published export served)."""
+    import torch
+
+    from etude_tpu_torch.scripts import publish_decoder
+
+    times = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        times[name] = time.perf_counter() - t
+        return out
+
+    data, k1 = timed("rollouts", recipe_rollouts, root / "rollouts", run_dir)
+    torch.cuda.empty_cache()
+    tuned = timed("fine-tune", recipe_finetune, root / "finetune", data, run_dir / "model")
+    k1 += timed("attribute prior", recipe_prior, root / "prior", tuned, cli_root)
+    timed("remap", recipe_remap, root, tuned)
+
+    def publish():
+        out = root / "published"
+        rc = publish_decoder.main(["--run", str(tuned), "--out", str(out), "--meta",
+                                   json.dumps({"corpus": "chip_smoke recipe"})])
+        meta = json.loads((out / "metadata.json").read_text())
+        say(f"  published {tuned} -> {out}: exit {rc}, metadata {meta}")
+        if rc != 0:
+            raise RuntimeError(f"publish_decoder exited {rc}")
+        return train_serve(out, cli_root, "published", model="latest.ckpt")
+
+    k1 += timed("publish and serve", publish)
+    timed("separation CLI", recipe_separation, root / "separation", separator)
+    timed("entry", recipe_entry)
+    say("  recipe spans: " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items()))
+    return k1
 
 
 # --------------------------------------------------------------- options
@@ -2813,13 +3303,17 @@ def main() -> int:
                 f"{decode_attention.launches}")
 
         with phase("train"):
-            launches += train_phase(tmp / "train", tmp / "cli")
+            k1, trained = train_phase(tmp / "train", tmp / "cli")
+            launches += k1
 
         with phase("aux_train"):
             from etude_tpu_torch.utils.kernel_bench import L2Flush
 
-            aux_k2, k2b_launches, k2b_rows = aux_train_phase(tmp / "aux", L2Flush())
+            aux_k2, k2b_launches, k2b_rows, separator = aux_train_phase(tmp / "aux", L2Flush())
             k2_launches += aux_k2
+
+        with phase("recipe"):
+            launches += recipe_phase(tmp / "recipe", trained, separator, tmp / "cli")
 
         with phase("options"):
             from etude_tpu_torch.utils.kernel_bench import L2Flush

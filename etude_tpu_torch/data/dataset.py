@@ -230,6 +230,14 @@ class EtudeDataset:
             raise ValueError("vocab must define <PAD>, Bar_BOS and Bar_EOS")
 
         self.songs = self._load_songs()
+        # Chunks `batches` has served, and those whose history holds a
+        # model rollout's bars (a bar past the first of a song with a
+        # `_hist` file, drawn with the rollout history); per song, whether
+        # its history bars come from such a file.
+        self.history_counts = {"chunks": 0, "rollout": 0}
+        self.has_rollouts = [
+            any(b["hist_bar_ids"] is not b["tgt_bar_ids"] for b in song["bars"])
+            for song in self.songs]
         all_attrs = [bar["attributes"] for song in self.songs for bar in song["bars"]]
         self.attribute_bin_edges = calculate_bin_edges(all_attrs)
         self.sample_map = self._build_sample_map()
@@ -444,6 +452,10 @@ class EtudeDataset:
                 self.dagger_history_prob >= 1.0
                 or hist_rng.random() < self.dagger_history_prob
             )
+            song_idx, bar_idx = self.sample_map[j][:2]
+            self.history_counts["chunks"] += 1
+            self.history_counts["rollout"] += int(
+                use_hist and bar_idx > 0 and self.has_rollouts[song_idx])
             return self._chunk(j, use_hist=use_hist)
 
         def maybe_drop_attrs(item):

@@ -92,14 +92,17 @@ class TrainRun:
     """What a run did: its output dir, the dataset's load time, per
     optimizer step its loss and its time (on the card, between the CUDA
     events recorded after each step, so the first step's time includes the
-    wait for its batch; on the CPU, host time), and the label tokens it
-    trained on."""
+    wait for its batch; on the CPU, host time), the label tokens it trained
+    on, and the chunks its batches drew and how many of them had a model
+    rollout's bars as history (`train.dagger_history`)."""
 
     ckpt_dir: Path
     load_seconds: float
     losses: List[float]
     step_seconds: List[float]
     label_tokens: int
+    chunks: int
+    rollout_chunks: int
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -166,10 +169,7 @@ def run(argv=None) -> Optional[TrainRun]:
         logger.info(f"attribute dropout: {tc.attr_dropout:.2f} "
                     "(neutral-bin conditioning for default serving)")
     if tc.dagger_history:
-        n_hist = sum(
-            1 for s in dataset.songs
-            if any(b["hist_bar_ids"] is not b["tgt_bar_ids"] for b in s["bars"])
-        )
+        n_hist = sum(dataset.has_rollouts)
         logger.info(f"DAgger history: {n_hist}/{len(dataset.songs)} songs have "
                     f"model rollouts, p(use rollout)={tc.dagger_history_prob:.2f}")
     if len(dataset) == 0:
@@ -284,6 +284,9 @@ def run(argv=None) -> Optional[TrainRun]:
             f"lr {lr:.2e} skipped {int(state.skipped)} ({dt:.1f}s, median step "
             f"{1e3 * statistics.median(step_seconds[-len(losses):]):.1f} ms)"
         )
+        counts = dataset.history_counts
+        logger.info(f"history: {counts['rollout']}/{counts['chunks']} chunks drawn so far "
+                    "had model-rollout bars")
         ckpt_dir.mkdir(parents=True, exist_ok=True)
         with open(ckpt_dir / "metrics.jsonl", "a", encoding="utf-8") as f:
             f.write(json.dumps({
@@ -313,8 +316,10 @@ def run(argv=None) -> Optional[TrainRun]:
     logger.success(f"training complete → {ckpt_dir}")
     logger.info(f"inference weights: {ckpt_dir / 'model'} "
                 "(point paths.decoder_model here)")
+    counts = dataset.history_counts
     return TrainRun(ckpt_dir=ckpt_dir, load_seconds=load_seconds, losses=all_losses,
-                    step_seconds=step_seconds, label_tokens=int(label_tokens))
+                    step_seconds=step_seconds, label_tokens=int(label_tokens),
+                    chunks=counts["chunks"], rollout_chunks=counts["rollout"])
 
 
 def main(argv=None) -> int:

@@ -50,6 +50,7 @@ from .ops.mel import log_mel_spectrogram_host
 from .ops.peakpick import activations_to_notes
 from .parallel.prefetch import prefetch
 from .parallel.train_step import make_aux_optimizer, make_aux_train_step
+from .scripts import refuse_checkpoints
 from .utils.device import compute_dtype_for, resolve_device
 from .utils.logger import logger
 from .utils.model_loader import load_params
@@ -410,10 +411,7 @@ def run(argv=None) -> List[AuxRun]:
         raise NotImplementedError(f"--scenes-dir {NOT_PORTED}")
     if args.pseudopop_cache or args.pseudopop_mix > 0:
         raise NotImplementedError(f"--pseudopop-cache/--pseudopop-mix {NOT_PORTED}")
-    output_dir = Path(args.output_dir or DEFAULT_OUTPUT_DIR).resolve()
-    if output_dir.is_relative_to((REPO / "checkpoints").resolve()):
-        raise ValueError(f"{output_dir} is under checkpoints/, which holds the JAX "
-                         "package's checkpoints; pick another --output-dir")
+    output_dir = refuse_checkpoints(args.output_dir or DEFAULT_OUTPUT_DIR, "--output-dir")
     device = resolve_device(args.device)
     runs = []
     for name in (MODES if args.model == "all" else (args.model,)):

@@ -18,18 +18,77 @@ Three kinds of checkpoint are read:
 The committed checkpoints are orbax directories, which only `jax` + `orbax`
 can read; the port runs where neither is installed. So an orbax checkpoint
 raises, naming the export it would need.
+
+`remap_decoder_vocab` re-indexes a decoder's tree onto a rebuilt vocabulary
+(JAX :16-69), for `scripts/remap_decoder_warmstart.py`.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Callable, Mapping, Optional, Tuple, Union
+
+import numpy as np
 
 from ..models.decoder import EtudeDecoder, EtudeDecoderConfig
 from ..weights import ParamTree, decoder_from_jax, init_decoder_params_np
 from .logger import logger
 from .torch_port import load_torch_decoder_checkpoint
 from .training import is_params_dir, load_params_only
+
+
+def _nearest_token_id(token: str, token_to_id: dict) -> Optional[int]:
+    """ID of the same-type token with the closest numeric value (the vocab
+    gains Note_103 → borrow Note_102's rows), or None (JAX :16)."""
+    m = re.match(r"^([A-Za-z]+)_(-?\d+)$", token)
+    if not m:
+        return None
+    type_, value = m.group(1), int(m.group(2))
+    best, best_dist = None, None
+    for tok, tid in token_to_id.items():
+        m2 = re.match(r"^([A-Za-z]+)_(-?\d+)$", tok)
+        if not m2 or m2.group(1) != type_:
+            continue
+        dist = abs(int(m2.group(2)) - value)
+        if best_dist is None or dist < best_dist:
+            best, best_dist = tid, dist
+    return best
+
+
+def remap_decoder_vocab(params: ParamTree, old_vocab, new_vocab) -> ParamTree:
+    """Re-index `word_emb` rows and `lm_head` columns of a decoder tree in
+    the JAX layout from one vocabulary to another by token string, so a
+    trained checkpoint can warm-start training against a rebuilt vocab whose
+    IDs shifted or grew (JAX :35). Tokens absent from the old vocab inherit
+    the nearest same-type token's weights (Note_103 ← Note_102); a token
+    with no such neighbour gets zeros. Leaf dtypes are kept."""
+    old_map = dict(old_vocab.token_to_id)
+    new_map = dict(new_vocab.token_to_id)
+    old_word = np.asarray(params["word_emb"])
+    old_head = np.asarray(params["lm_head"])
+    V_new, H = len(new_map), old_word.shape[1]
+
+    word = np.zeros((V_new, H), old_word.dtype)
+    head = np.zeros((old_head.shape[0], V_new), old_head.dtype)
+    borrowed = []
+    for tok, nid in new_map.items():
+        oid = old_map.get(tok)
+        if oid is None:
+            oid = _nearest_token_id(tok, old_map)
+            borrowed.append((tok, oid))
+        if oid is not None:
+            word[nid] = old_word[oid]
+            head[:, nid] = old_head[:, oid]
+    if borrowed:
+        logger.info(
+            "vocab remap: borrowed weights for "
+            + ", ".join(f"{t}←id{o}" for t, o in borrowed)
+        )
+    out = dict(params)
+    out["word_emb"] = word
+    out["lm_head"] = head
+    return out
 
 
 def load_params(what: str, model_path: Union[str, Path, None],
