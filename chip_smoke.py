@@ -16,7 +16,8 @@ Phases, each announced with a flushed line when it starts and ends:
                     launches on the same inputs must give the same bits
   4. serving        the streaming engine at full decoder width (random weights
                     from a seed through the weight bridge) over 24 real corpus
-                    bars, 16 lockstep streams, greedy then sampled; the K1
+                    bars, 16 lockstep streams, greedy, then sampled over the
+                    first SAMPLED_BARS of them; the K1
                     launch count must equal the engine's S = 1 chunks x
                     layers; a short window under torch.profiler shows where a
                     step's time goes; then the same chunks on the card and on
@@ -212,6 +213,10 @@ BYPASS_DB_ATOL = 1e-3
 QUANT_LOGIT_ATOL = 3e-2
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
+# The serving phase decodes its 24 corpus bars greedily, then samples over
+# the first SAMPLED_BARS of them: enough to check sampling, and it keeps the
+# whole run well inside its time limit on a slow host.
+SAMPLED_BARS = 8
 ORIGIN_SR, ALIGN_SR = 44100, 22050
 # The prepare phase's covers: the origin's notes shifted and swung by
 # ±WARP_SECONDS over WARP_PERIOD, which keeps the WP-Std of a grid through
@@ -1933,13 +1938,12 @@ def check_dilated_backward(B, T, dilation, seed, flush, head7_bug=False):
             q, k, v, er, g, dilation, head7_bug), iters=5, flush=flush),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    scratch = 4 * B * H * T * 5 * 4
     say(f"  K2b B={B:2d} T={T:5d} dil={dilation:3d}{' head7_bug' if head7_bug else ''}: "
         f"max|err| dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} der {errs[3]:.3g} "
         f"(tol {', '.join(f'{t:.3g}' for t in tols)}); control at dilation {other}: "
         f"{', '.join(f'{c:.3g}' for c in control)}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, "
-        f"{bound_by}; with the f32 scratch {(n_bytes + scratch) / 1e6:.1f} MB)")
+        f"{bound_by})")
     return row
 
 
@@ -1990,8 +1994,8 @@ def aux_cli_run(out: Path, mode: str):
         raise RuntimeError(f"{mode}: {len(run.losses)} steps, losses {run.losses}")
     if not held_out or not all(math.isfinite(v) for v in held_out.values()):
         raise RuntimeError(f"{mode}: held-out evaluation {held_out}")
-    # K2b: two kernel launches per call, one call per layer and step.
-    expect = ((9 * (AUX_STEPS + AUX_EVAL_CLIPS), 2 * 9 * AUX_STEPS) if mode == "beat"
+    # K2b: one kernel launch per call, one call per layer and step.
+    expect = ((9 * (AUX_STEPS + AUX_EVAL_CLIPS), 9 * AUX_STEPS) if mode == "beat"
               else (0, 0))
     if (k2, k2b) != expect:
         raise RuntimeError(f"{mode}: K2/K2b launched {k2}/{k2b} times, expected {expect}")
@@ -2213,7 +2217,7 @@ def aux_train_phase(root: Path, flush):
              for dil in (1, 8, 256)]
     rows += [check_dilated_backward(5, 12288, dil, 600 + dil, flush) for dil in (1, 16, 256)]
     train = [r for r in rows if r["T"] == 512 and not r["head7_bug"]]
-    say(f"  K2b, one beat training step at B=40 T=512 (9 calls, 18 launches): kernel "
+    say(f"  K2b, one beat training step at B=40 T=512 (9 calls, 9 launches): kernel "
         f"{sum(r['ms'] for r in train):.4f} ms, plain {sum(r['plain_ms'] for r in train):.4f} ms, "
         f"bound {sum(r['bound_ms'] for r in train):.4f} ms")
 
@@ -3251,9 +3255,10 @@ def main() -> int:
             f"{len(bars)} corpus bars, 16 streams, cache C = {main_C}")
         say(f"  host: {host_launch_us():.2f} us per eager launch (1-element add)")
         launches = 0
-        for kw in ({"temperature": 0.0}, {"temperature": 1.0, "top_p": 0.9, "seed": 1234}):
-            outs, n = serve(engine, model, bars, attrs, **kw)
-            check_streams(outs, len(bars), vocab.bar_bos_id, vocab.bar_eos_id,
+        for kw, n_bars in (({"temperature": 0.0}, len(bars)),
+                           ({"temperature": 1.0, "top_p": 0.9, "seed": 1234}, SAMPLED_BARS)):
+            outs, n = serve(engine, model, bars[:n_bars], attrs, **kw)
+            check_streams(outs, n_bars, vocab.bar_bos_id, vocab.bar_eos_id,
                           config.vocab_size, engine.max_bar_token_limit)
             launches += n
         profile_window(model, config, vocab, bars, attrs)
@@ -3352,7 +3357,7 @@ def main() -> int:
         "bound_by": k2_main[0]["bound_by"],
         "library_ms": None,
     }, {
-        # K2's backward, per call (two launches) on the main path: the mean
+        # K2's backward, per call (one launch) on the main path: the mean
         # over the 9 dilations of one beat training step (B = 40, T = 512).
         "name": "dilated_attention_backward",
         "route": "cuda",

@@ -27,9 +27,12 @@ the design still leaves behind.
 Gradient: on CUDA tensors the output comes from `_DilatedAttention`, whose
 backward is the hand kernel K2b (csrc/dilated_attention_bwd.cu,
 `dilated_attention_backward`): the gradient that jax.grad takes through the
-JAX `dilated_attention` (:106), which the TPU kernel lacks. On CPU tensors
-autograd differentiates the plain version, which is also K2b's oracle
-(`dilated_attention_backward_plain`).
+JAX `dilated_attention` (:106), which the TPU kernel lacks. One launch: a
+tile of 64 strided positions stages the k, v, q and dO rows around them
+(`backward_tiles` mirrors its windows), recomputes p and ds in shared
+memory and writes dq, dk and dv of its positions and a partial of der. On
+CPU tensors autograd differentiates the plain version, which is also K2b's
+oracle (`dilated_attention_backward_plain`).
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from . import _build
 HEAD_SHIFTS = (0, 0, 0, 0, -2, -1, 1, 2)
 HEAD_DIM = 32          # the kernel's d; the Beat-Transformer's 256 / 8 heads
 ATTN_LEN = 5           # the kernel's slots per query
-BWD_TILE = 128         # K2b's queries per block (kThreads in the source)
+BWD_TILE = 64          # K2b's strided positions per tile (kTile in the source)
 
 
 def head_offsets(n_heads: int, attn_len: int) -> np.ndarray:
@@ -57,6 +60,39 @@ def head_offsets(n_heads: int, attn_len: int) -> np.ndarray:
     shifts = HEAD_SHIFTS if n_heads == len(HEAD_SHIFTS) else [0] * n_heads
     half = attn_len // 2
     return np.stack([np.arange(attn_len) + s - half for s in shifts]).astype(np.int32)
+
+
+def strided_order(T: int, dilation: int) -> np.ndarray:
+    """The strided view of K2 and K2b: the positions t of one (b, h) by
+    residue mod the dilation, then by position; entry u is the position at
+    strided index u. Within one residue class a query's 5 slots are its
+    neighbours in u (class rows j + first + 0..4)."""
+    return np.argsort(np.arange(T) % dilation, kind="stable")
+
+
+@functools.lru_cache(maxsize=None)
+def backward_tiles(T: int, dilation: int, first: int) -> np.ndarray:
+    """K2b's partition of one (b, h), as the kernel computes it: one row per
+    block, (u0, n, k_lo, k_hi, q_lo, q_hi) in strided indices. The block
+    writes dq, dk and dv of the positions [u0, u0 + n) and der's partial over
+    those queries; it stages the k and v rows [k_lo, k_hi) (its keys and its
+    key rows' queries' keys: 4 rows each side) and the q and dO rows
+    [q_lo, q_hi) (the queries reaching its key rows: u - first - 4 .. u -
+    first), each window clipped to the class of the tile's first or last
+    position. `first` is the head's slot-0 offset (-4..0)."""
+    t = strided_order(T, dilation)
+    j = t // dilation
+    length = (T - t % dilation + dilation - 1) // dilation    # each position's class length
+    u0 = np.arange(0, T, BWD_TILE)
+    n = np.minimum(BWD_TILE, T - u0)
+    head = j[u0]                                  # positions of the first class before u0
+    tail = length[u0 + n - 1] - 1 - j[u0 + n - 1]  # positions of the last class after the tile
+    halo = ATTN_LEN - 1
+    tiles = np.stack([u0, n, u0 - np.minimum(halo, head), u0 + n + np.minimum(halo, tail),
+                      u0 - np.minimum(head, first + halo), u0 + n + np.minimum(tail, -first)],
+                     axis=1)
+    tiles.flags.writeable = False
+    return tiles
 
 
 def _head7_keys(k: torch.Tensor, head7_bug: bool) -> torch.Tensor:
@@ -128,7 +164,7 @@ def _launcher():
 @functools.cache
 def _backward_launcher():
     fn = _build.load("dilated_attention_bwd").dilated_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -189,9 +225,9 @@ def dilated_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                er: torch.Tensor, grad_out: torch.Tensor,
                                dilation: int, head7_bug: bool = False):
     """K2b on CUDA tensors: (dq, dk, dv) in bf16 and der f32 [H, d, A], the
-    gradient of `dilated_attention`'s output against `grad_out`. Two
-    launches (per query, then per key row) and a fixed-order sum of der's
-    per-block partials; one call adds its two kernel launches to
+    gradient of `dilated_attention`'s output against `grad_out`. One launch
+    (a block per `backward_tiles` row of each (b, h)) and a fixed-order sum
+    of der's per-block partials; one call adds one to
     `dilated_attention_backward.launches`. Raises on what the kernel does
     not take, as the forward does."""
     if not all(t.is_cuda for t in (q, k, v, er, grad_out)):
@@ -207,22 +243,21 @@ def dilated_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if g.data_ptr() % 16:
         g = g.clone()
     B, H, T, d = q.shape
-    er_t = _er_rows(er)
+    # The kernel reads er as it comes, [H, d, A] in bf16 or f32.
+    er_c = (er if er.dtype in (torch.bfloat16, torch.float32) else er.float()).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    p = torch.empty(B, H, T, ATTN_LEN, dtype=torch.float32, device=q.device)
-    ds = torch.empty_like(p)
-    tiles = -(-T // BWD_TILE)
-    part = torch.empty(B, H, tiles, ATTN_LEN, d, dtype=torch.float32, device=q.device)
+    tiles = len(backward_tiles(T, dilation, int(head_offsets(H, ATTN_LEN)[0, 0])))
+    part = torch.empty(H * ATTN_LEN * d, B * tiles, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _backward_launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), er_t.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), p.data_ptr(), ds.data_ptr(),
-        part.data_ptr(), B, H, T, d, ATTN_LEN, dilation, int(head7_bug and H == 8),
-        _first_offsets(H), stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), er_c.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+        B, H, T, d, ATTN_LEN, dilation, int(head7_bug and H == 8),
+        int(er_c.dtype == torch.bfloat16), _first_offsets(H), stream)
     if rc != 0:
         raise RuntimeError(f"dilated_attention backward launch failed: CUDA error {rc}")
-    dilated_attention_backward.launches += 2
-    der = part.sum(dim=(0, 2)).transpose(1, 2)            # [H, d, A]
+    dilated_attention_backward.launches += 1
+    der = part.sum(dim=1).view(H, ATTN_LEN, d).transpose(1, 2)   # [H, d, A]
     return dq, dk, dv, der
 
 

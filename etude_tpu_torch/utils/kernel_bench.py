@@ -128,9 +128,9 @@ def dilated_backward_bound(B: int, H: int, T: int, d: int,
     """K2b: q, k, v and dO read once and dq, dk and dv written once (bf16),
     er read once and der written once (f32); per (query, slot): q.k, q.er
     and dO.v (6d), dq's k + er term (4d), dk, dv and der (6d) and the
-    softmax and its gradient (about 12). The kernel's f32 scratch (p and ds,
-    written and read once, 4 * B*H*T*attn_len * 4 bytes) is its own choice,
-    not the function's, and is not counted here."""
+    softmax and its gradient (about 12). What a design adds (the halo rows
+    it stages, der's per-block partials) is its own choice, not the
+    function's, and is not counted here."""
     n_bytes = 7 * B * H * T * d * 2 + 2 * H * d * attn_len * 4
     ms, by = bound(n_bytes, B * H * T * attn_len * (16 * d + 12))
     return ms, by, n_bytes

@@ -31,11 +31,14 @@ from etude_tpu.ops.dilated_attention import (
     head_offsets as jax_head_offsets,
 )
 from etude_tpu_torch.ops.dilated_attention import (
+    BWD_TILE,
+    backward_tiles,
     dilated_attention,
     dilated_attention_backward,
     dilated_attention_backward_plain,
     dilated_attention_plain,
     head_offsets,
+    strided_order,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -134,7 +137,7 @@ def test_tensors_off_cpu_and_off_cuda_raise():
         dilated_attention(q, k, v, er, 1)
 
 
-# A block tiles 64 queries in the strided view (by residue mod the
+# A block tiles 128 queries in the strided view (by residue mod the
 # dilation): T = 10,336 (a 240 s song, not a multiple of any dilation > 32)
 # gives classes of two lengths at every dilation; T < dilation gives
 # classes of one query; head7_bug at both ends of the dilations.
@@ -220,6 +223,57 @@ def test_backward_kernel_refuses_cpu_tensors():
     assert dilated_attention_backward.launches == before
 
 
+@pytest.mark.parametrize("dilation", range(1, 257))
+@pytest.mark.parametrize("T", [77, 200, 512, 10336, 12288])
+def test_backward_tiles_partition_and_windows(T, dilation):
+    """K2b's partition (`backward_tiles`, the kernel's tile arithmetic in
+    Python) for every head offset: the tiles' own positions, where each
+    block writes dq, dk and dv, cover every position exactly once; every
+    staged window lies inside the class of the tile end it extends; a
+    query's slot a lies first + a strided rows on (the kernel's staged-row
+    arithmetic); and the staged q rows hold every query that reaches the
+    tile's key rows, with all of those queries' keys inside the staged k
+    rows (so p and ds are complete for every term the tile sums)."""
+    order = strided_order(T, dilation)                 # u -> position t
+    np.testing.assert_array_equal(order % dilation, np.sort(order % dilation))
+    inv = np.empty(T, dtype=np.int64)
+    inv[order] = np.arange(T)
+    cls = order % dilation
+    own_tile = np.arange(T) // BWD_TILE
+    for first in np.unique(head_offsets(8, 5)[:, 0]):
+        tiles = backward_tiles(T, dilation, int(first))
+        u0, n, k_lo, k_hi, q_lo, q_hi = tiles.T
+        assert len(tiles) == -(-T // BWD_TILE)
+        assert (n > 0).all() and u0[0] == 0 and u0[-1] + n[-1] == T
+        np.testing.assert_array_equal(u0[1:], u0[:-1] + n[:-1])
+        for lo, hi in ((k_lo, k_hi), (q_lo, q_hi)):
+            assert (lo >= 0).all() and (hi <= T).all()
+            assert (lo <= u0).all() and (hi >= u0 + n).all()
+            assert (cls[lo] == cls[u0]).all() and (cls[hi - 1] == cls[u0 + n - 1]).all()
+        assert (u0 - k_lo <= 4).all() and (k_hi - u0 - n <= 4).all()
+        assert (q_hi - q_lo - n <= 4).all()
+        # Every staged query of every tile, with its tile.
+        lengths = q_hi - q_lo
+        staged_tile = np.repeat(np.arange(len(tiles)), lengths)
+        staged_u = (np.arange(lengths.sum()) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+                    + np.repeat(q_lo, lengths))
+        for a in range(5):
+            tk = order + (first + a) * dilation
+            valid = (tk >= 0) & (tk < T)
+            uq = np.arange(T)[valid]
+            uk = inv[tk[valid]]
+            np.testing.assert_array_equal(uk, uq + first + a)
+            # The query reaching key row uk is staged by uk's tile.
+            kt = own_tile[uk]
+            assert ((uq >= q_lo[kt]) & (uq < q_hi[kt])).all()
+            # Every staged query's valid keys are staged by the same tile.
+            ts = order[staged_u] + (first + a) * dilation
+            ok = (ts >= 0) & (ts < T)
+            us = inv[ts[ok]]
+            st = staged_tile[ok]
+            assert ((us >= k_lo[st]) & (us < k_hi[st])).all()
+
+
 def _ulps2(ref):
     """Two bf16 ulps of the largest |value|; 0 for an all-zero reference (at
     T <= dilation every query sees only itself: p = 1, so ds, dq and dk are 0)."""
@@ -228,11 +282,14 @@ def _ulps2(ref):
 
 
 # The training shape (B = 40 rows: 8 clips x 5 stems, T = 512) at every
-# dilation, the serving bucket at three, head7_bug both ways.
+# dilation, the serving bucket at three, head7_bug both ways, and a 240 s
+# song (T = 10,336: classes of two lengths at every dilation above 32) at
+# every dilation.
 BWD_CARD_CASES = ([(40, 512, 2 ** i, False) for i in range(9)]
                   + [(5, 12288, d, False) for d in (1, 16, 256)]
                   + [(40, 512, d, True) for d in (1, 8, 256)]
-                  + [(2, 77, 128, True), (3, 200, 3, False)])
+                  + [(2, 77, 128, True), (3, 200, 3, False)]
+                  + [(5, 10336, 2 ** i, False) for i in range(9)])
 
 
 @pytest.mark.cuda
@@ -248,7 +305,7 @@ def test_backward_kernel_matches_plain_on_card(B, T, dilation, head7_bug):
     got = dilated_attention_backward(q, k, v, er, g, dilation, head7_bug=head7_bug)
     again = dilated_attention_backward(q, k, v, er, g, dilation, head7_bug=head7_bug)
     torch.cuda.synchronize()
-    assert dilated_attention_backward.launches == before + 4
+    assert dilated_attention_backward.launches == before + 2
     ref = dilated_attention_backward_plain(q, k, v, er, g, dilation, head7_bug=head7_bug)
     for name, a, b, r in zip(("dq", "dk", "dv", "der"), got, again, ref):
         assert torch.equal(a, b), name
@@ -262,7 +319,7 @@ def test_backward_kernel_matches_plain_on_card(B, T, dilation, head7_bug):
 @pytest.mark.cuda
 def test_autograd_on_card_goes_through_the_backward_kernel():
     """The card's output carries a gradient: backward() through
-    `dilated_attention` launches K2b (its two kernels) once and fills every
+    `dilated_attention` launches K2b (one kernel) once and fills every
     input's grad."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -272,7 +329,7 @@ def test_autograd_on_card_goes_through_the_backward_kernel():
     before = dilated_attention_backward.launches
     out = dilated_attention(q, k, v, er32.bfloat16(), 4)
     out.float().square().sum().backward()
-    assert dilated_attention_backward.launches == before + 2
+    assert dilated_attention_backward.launches == before + 1
     for t in (q, k, v, er32):
         assert t.grad is not None and torch.isfinite(t.grad.float()).all()
     assert er32.grad.dtype == torch.float32 and er32.grad.abs().max() > 0
