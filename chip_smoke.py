@@ -15,9 +15,9 @@ Phases, each announced with a flushed line when it starts and ends:
                     one exists, and at its designs' edge cases; two
                     launches on the same inputs must give the same bits
   4. serving        the streaming engine at full decoder width (random weights
-                    from a seed through the weight bridge) over 24 real corpus
-                    bars, 16 lockstep streams, greedy, then sampled over the
-                    first SAMPLED_BARS of them; the K1
+                    from a seed through the weight bridge) over GREEDY_BARS
+                    real corpus bars, 16 lockstep streams, greedy, then
+                    sampled over the first SAMPLED_BARS of them; the K1
                     launch count must equal the engine's S = 1 chunks x
                     layers; a short window under torch.profiler shows where a
                     step's time goes; then the same chunks on the card and on
@@ -80,8 +80,8 @@ Phases, each announced with a flushed line when it starts and ends:
                     synthetic condition notes, to a MIDI file that parses
  11. train          `etude_tpu_torch.train` in-process at the published decoder
                     widths on dataset_distill/tokenized (500 songs, 1024-token
-                    chunks) with configs/distill.yaml's train settings, 40
-                    steps, `latest` saved every 20, host syncs an error in
+                    chunks) with configs/distill.yaml's train settings, 20
+                    steps, `latest` saved every 10, host syncs an error in
                     the steady steps: dataset load time, median warm step,
                     tokens/s, peak memory, the step's operations, then a
                     profiled window (idle share, top operations); checks,
@@ -92,7 +92,32 @@ Phases, each announced with a flushed line when it starts and ends:
                     (labels shifted by one), a resume across an epoch within
                     the card's run-to-run spread (Adam moments zeroed), and
                     `--decode-only` serving the run's own export
- 12. aux_train      the backward kernel K2b against autograd of K2's plain
+ 12. multigpu       multi-GPU decoder training and the sweep over cards; it
+                    prints the world size it ran at (the number of visible
+                    cards). An NCCL world of one: the mesh step
+                    (`make_train_step(mesh=...)`), replicated and FSDP,
+                    against the plain step for 3 steps of configs/
+                    distill.yaml's batch at the published widths, under
+                    torch's deterministic algorithms (the card's default
+                    backward is not deterministic: two plain runs are
+                    compared and printed), equal bit for bit in bf16, no
+                    host sync after the first step (control: one row's
+                    labels shifted); an FSDP checkpoint restored onto other
+                    weights resumes bit for bit (control: moments zeroed);
+                    `dryrun_multichip`
+                    over every card; the 27-combo sweep over 4 corpus bars
+                    (64-token cap) on one card and spread over the cards
+                    (two threads on card 0 when there is one), greedy tokens
+                    equal up to near-ties (counted), K1 launches = S = 1
+                    chunks x layers. With two or more cards, also
+                    `infer --decode-only --sweep` (the engine gets every
+                    card; 27 MIDI files), the
+                    training CLI with `mesh.data_parallel` = the card count
+                    against one card (10 steps, losses within the card-vs-CPU
+                    step limit), and `tools/mesh_bench.py` at 1, 2 and all
+                    ranks (and FSDP at all): warm step, tokens/s, the
+                    collectives' share of device time, peak memory per card
+ 13. aux_train      the backward kernel K2b against autograd of K2's plain
                     version at the training shape (B = 40, T = 512, all 9
                     dilations) and the serving shape (B = 5, T = 12,288,
                     three dilations), head7_bug both ways, timed, each
@@ -109,7 +134,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     against the CPU (labels shifted), and `--input` on a
                     30 s click track served from the phase's own exports
                     (loaded, no random weights; 9 K2 launches)
- 13. recipe         the decoder's recipe through the scripts, at full width:
+ 14. recipe         the decoder's recipe through the scripts, at full width:
                     `dagger_rollouts --batch 16` in-process on 16 corpus
                     songs cut to 6 bars, from the train phase's export
                     (wall, tok/s, K1 launches = the engine's S = 1 chunks
@@ -136,7 +161,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     `separate_features` bit for bit (control: another
                     seed's track); `entry()` on the card, bf16 vs the
                     CPU's f32 (control: one layer's attention zeroed)
- 14. options        the serving CLI's other options, each check beside a
+ 15. options        the serving CLI's other options, each check beside a
                     control it must catch: `--decode-only --engine rebuild`
                     on the cli phase's work dir (K1 launches = the S = 1
                     steps counted from outside the engine x 8 layers; the
@@ -160,7 +185,8 @@ Phases, each announced with a flushed line when it starts and ends:
                     7's keys from head 6 (control: without the compat)
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline, prepare, cli, train, aux_train, recipe and options runs,
+serving, structuralize, pipeline, prepare, cli, train, multigpu, aux_train,
+recipe and options runs,
 each counted from 0 (K2b's: the aux_train beat run's), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
@@ -213,10 +239,11 @@ BYPASS_DB_ATOL = 1e-3
 QUANT_LOGIT_ATOL = 3e-2
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
-# The serving phase decodes its 24 corpus bars greedily, then samples over
-# the first SAMPLED_BARS of them: enough to check sampling, and it keeps the
-# whole run well inside its time limit on a slow host.
-SAMPLED_BARS = 8
+# The serving phase decodes the first GREEDY_BARS of its 24 corpus bars
+# greedily (24 until PR 14; the cache stays C = 1217), then samples over the
+# first SAMPLED_BARS: enough to check both, and it keeps the whole run
+# inside its time limit on a slow host (1,108 s with 24 in PR 14).
+GREEDY_BARS, SAMPLED_BARS = 16, 8
 ORIGIN_SR, ALIGN_SR = 44100, 22050
 # The prepare phase's covers: the origin's notes shifted and swung by
 # ±WARP_SECONDS over WARP_PERIOD, which keeps the WP-Std of a grid through
@@ -240,7 +267,8 @@ CHROMA_ATOL, ONSET_ATOL = 1e-4, 2e-2
 # Card vs CPU warping paths of a 30 s pair: largest gap in frames (20 ms
 # each) and WPD gap in seconds.
 PATH_FRAMES, WPD_ATOL = 2, 5e-3
-TRAIN_STEPS, TRAIN_SAVE_EVERY = 40, 20
+# 20 steps (40 until PR 14, cut for the multigpu phase's time).
+TRAIN_STEPS, TRAIN_SAVE_EVERY = 20, 10
 # 30 steps of the published decoder on one fixed micro-batch of 8 corpus
 # chunks (peak rate 2e-4 after 3 warmup steps) must lower its loss by this
 # fraction (4.68 -> 1.62, 65%, on an H100); at rate 0 the loss and every
@@ -303,6 +331,13 @@ AUX_STEP_LIMITS = {"beat": {"bf16": (5e-3, 2e-2, 0.3)}, "amt": {"bf16": (5e-3, 2
 RECIPE_SONGS, RECIPE_BARS, RECIPE_STRIDE, RECIPE_STEPS = 16, 6, 25, 4
 PRIOR_SUBSET_SONGS, PRIOR_STEPS, PRIOR_RTOL, PRIOR_ATOL = 30, 300, 1e-6, 1e-7
 REMAP_TOKENS = 256
+# The multigpu phase: steps of the mesh step against the plain one, the
+# split sweep's bars and per-bar token cap (the serving phase runs the
+# 512-token cap), steps of the CLI's data-parallel run, and the near-tie
+# margin that a greedy divergence between the split and the one-device
+# sweep must fall under (tests/test_torch_generate_stream.py TIE_MARGIN).
+MESH_STEPS, SWEEP_BARS, SWEEP_TOKENS, DP_CLI_STEPS = 3, 4, 64, 10
+TIE_MARGIN = 1.75e-2
 # `entry()`: the default decoder's logits (std about 0.45, largest 2.1,
 # under seed 0's weights), card bf16 against CPU f32, as LOGIT_ATOL and
 # LOGIT_RTOL hold the serving logits. Measured on an H100: 0.0234 (inside
@@ -1592,8 +1627,8 @@ def device_batch(host, accum, device, rows=None):
 
 
 def train_main_run(root: Path):
-    """The CLI at full width on the whole corpus: 40 steps, `latest` every
-    20, with --strict-sync."""
+    """The CLI at full width on the whole corpus: TRAIN_STEPS steps, `latest`
+    every TRAIN_SAVE_EVERY, with --strict-sync."""
     import math
 
     import torch
@@ -1843,7 +1878,7 @@ def train_serve(run_dir: Path, cli_root: Path, name: str, model: str = "model",
 
 def train_phase(root: Path, cli_root: Path):
     """The train phase; returns the K1 launches of serving the exports (the
-    main run's: 40 steps, its rate still below 2.2e-6 in its warmup; the
+    main run's: TRAIN_STEPS steps, its rate still below 2.2e-6 in its warmup; the
     resume check's first straight run's: 42 steps on 7 songs, warmed up to
     2e-4) and the latter run's directory, for the recipe phase."""
     import itertools
@@ -3156,6 +3191,381 @@ def options_phase(root: Path, cli_root: Path, model, config, vocab, bars, attrs,
     return k1, k2
 
 
+def mesh_training(config, mesh, fsdp):
+    """A state of the published decoder from seed 0 over `mesh` (replicated,
+    or FSDP), with the mesh step; the rate warms up in one step."""
+    import torch
+    from etude_tpu_torch.parallel.train_step import (
+        init_sharded_state, make_optimizer, make_train_step,
+    )
+    from etude_tpu_torch.weights import decoder_from_jax, init_decoder_params_np
+
+    model = decoder_from_jax(init_decoder_params_np(config, seed=0), config, mesh.device)
+    tx, _ = make_optimizer(learning_rate=2e-4, warmup_steps=1, total_steps=1000)
+    return (init_sharded_state(model, tx, mesh, fsdp=fsdp),
+            make_train_step(config, tx, compute_dtype=torch.bfloat16, mesh=mesh))
+
+
+def whole_state(state):
+    """Every parameter and both moments, whole, as one flat list of tensors."""
+    from etude_tpu_torch.parallel.train_step import full_params
+    from etude_tpu_torch.utils.training import full_moments
+
+    mu, nu = full_moments(state)
+    return [t.clone() for d in (full_params(state), mu, nu) for t in d.values()]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True, warn_only=True)` inside;
+    yields the list of the warnings it raised (ops without a deterministic
+    form)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def mesh_parity(root: Path, config, hosts):
+    """An NCCL world of one: the mesh step, replicated and FSDP, against the
+    plain step for MESH_STEPS steps from the same weights and batches, bit
+    for bit in bf16 (control: one row's labels shifted); then an FSDP
+    checkpoint saved and restored onto a state from other weights, whose
+    next two steps equal the direct state's in every bit (control: the
+    moments zeroed in a copy). The card's backward is not deterministic by
+    default (two plain runs are compared first, and the result printed), so
+    the checks run under torch's deterministic algorithms. Leaves no
+    process group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from etude_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shard_batch
+    from etude_tpu_torch.parallel.train_step import reshape_for_accum
+
+    initialize_multihost(f"file://{root}/store", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(data_parallel=1)
+        say(f"  process group: world size {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, rank 0 on {mesh.device}")
+
+        def batches(shift_row=None):
+            out = []
+            for host in hosts:
+                host = reshape_for_accum(host, 4)
+                if shift_row is not None:
+                    host = {**host, "labels": host["labels"].copy()}
+                    host["labels"][0, shift_row] = np.roll(host["labels"][0, shift_row], 1)
+                out.append({k: torch.from_numpy(v).cuda()
+                            for k, v in shard_batch(host, mesh).items()})
+            return out
+
+        def run(kind, data):
+            if kind == "plain":
+                state, step = fresh_training(config, "cuda", torch.bfloat16, warmup=1)
+                data = [{k: v for k, v in b.items() if k != "n_labels"} for b in data]
+            else:
+                state, step = mesh_training(config, mesh, kind == "fsdp")
+            losses = [step(state, data[0])["loss"]]
+            # The mesh step reads nothing back to the host: after the first
+            # step a synchronization raises, as under the CLI's --strict-sync.
+            torch.cuda.set_sync_debug_mode("error" if kind != "plain" else "default")
+            try:
+                losses += [step(state, b)["loss"] for b in data[1:MESH_STEPS]]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            return [float(x) for x in losses], whole_state(state), state, step
+
+        plain = run("plain", batches())
+        again = run("plain", batches())
+        say(f"  plain step twice, torch's default algorithms: losses {plain[0]}, "
+            f"{again[0]}; parameters and moments equal bit for bit: "
+            f"{all(torch.equal(a, b) for a, b in zip(plain[1], again[1]))}")
+        del again
+        with deterministic() as caught:
+            mesh_checks(root, config, mesh, batches, run)
+        ops = sorted({str(w.message).split(" does not have")[0][:80] for w in caught})
+        say(f"  under deterministic algorithms; warned ops without a deterministic form: {ops}")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def mesh_checks(root: Path, config, mesh, batches, run):
+    """The body of `mesh_parity`, under deterministic algorithms."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from etude_tpu_torch.utils.training import load_checkpoint, save_checkpoint
+
+    plain = run("plain", batches())
+    rows = {}
+    for kind, data in (("replicated", batches()), ("fsdp", batches()),
+                       ("control, one row's labels shifted", batches(shift_row=0))):
+        losses, tensors, state, step = run("fsdp" if kind == "fsdp" else "dp", data)
+        same = losses == plain[0] and all(torch.equal(a, b) for a, b in zip(tensors, plain[1]))
+        rows[kind] = same
+        say(f"  mesh step ({kind}), {MESH_STEPS} steps of 32 x 1024 in bf16: losses "
+            f"{losses} vs plain {plain[0]}; losses, parameters and moments equal "
+            f"bit for bit: {same}")
+        if kind == "fsdp":
+            fsdp_state, fsdp_step = state, step
+        else:
+            del state, step
+    if not rows["replicated"] or not rows["fsdp"]:
+        raise RuntimeError("the mesh step at world 1 differs from the plain step")
+    if rows["control, one row's labels shifted"]:
+        raise RuntimeError("the mesh step check missed its control (labels shifted)")
+    del plain
+    torch.cuda.empty_cache()
+
+    # The FSDP checkpoint: direct, resumed onto other weights, and the
+    # control with zeroed moments; two more steps each.
+    data = batches()[MESH_STEPS:MESH_STEPS + 2]
+    ckpt, bad = root / "ckpt", root / "ckpt_zeroed"
+    t = time.perf_counter()
+    save_checkpoint(ckpt, fsdp_state, epoch=0, global_step=MESH_STEPS, model_config=config)
+    save_s = time.perf_counter() - t
+    shutil.copytree(ckpt, bad)
+    opt = bad / "latest" / "opt_state.npz"
+    with np.load(opt) as f:
+        zeroed = {k: (np.zeros_like(f[k]) if k.startswith(("mu/", "nu/")) else f[k])
+                  for k in f.files}
+    np.savez(opt, **zeroed)
+    results = {}
+    for name, source in (("direct", None), ("resumed", ckpt), ("control", bad)):
+        if source is None:
+            state, step = fsdp_state, fsdp_step
+        else:
+            state, step = mesh_training(config, mesh, True)
+            load_checkpoint(source, state)
+        losses = [float(step(state, b)["loss"]) for b in data]
+        results[name] = (losses, whole_state(state))
+        del state
+    direct, resumed, control = results["direct"], results["resumed"], results["control"]
+
+    def equal(a, b):
+        return a[0] == b[0] and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    say(f"  FSDP checkpoint (saved in {save_s:.2f} s): two steps after the restore, losses "
+        f"{resumed[0]} vs direct {direct[0]}, state equal bit for bit: "
+        f"{equal(resumed, direct)}; control, moments zeroed: losses {control[0]}, "
+        f"equal: {equal(control, direct)}")
+    if not equal(resumed, direct):
+        raise RuntimeError("the FSDP checkpoint did not resume bit for bit")
+    if equal(control, direct):
+        raise RuntimeError("the resume check missed its control (moments zeroed)")
+
+
+class _Margins:
+    """While entered, the streaming engine's sampler also records each
+    row's top-2 logit margin at every call (on the device)."""
+
+    def __enter__(self):
+        from etude_tpu_torch.models import generate_stream
+
+        self.margins, self._module = [], generate_stream
+        self._sample = sample = generate_stream.sample_token
+
+        def recorded(logits, *args, **kw):
+            top2 = logits.topk(2, dim=-1).values
+            self.margins.append(top2[..., 0] - top2[..., 1])
+            return sample(logits, *args, **kw)
+
+        generate_stream.sample_token = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._module.sample_token = self._sample
+
+
+def sweep_divergence(one, spread, margins):
+    """(streams equal, streams first diverging at a near-tie, the largest
+    margin at a first divergence); the margin is the one-device run's at
+    the diverging token."""
+    steps = [max(len(s[i]) - 1 for s in one) for i in range(len(one[0]))]
+    starts = [sum(steps[:i]) for i in range(len(steps))]
+    equal = ties = 0
+    worst = 0.0
+    for b, (a, c) in enumerate(zip(one, spread)):
+        if a == c:
+            equal += 1
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a, c)) if x != y)
+        t = next((t for t, (x, y) in enumerate(zip(a[i], c[i])) if x != y),
+                 min(len(a[i]), len(c[i])))
+        margin = float(margins[starts[i] + t - 1, b])
+        worst = max(worst, margin)
+        ties += margin < TIE_MARGIN
+    return equal, ties, worst
+
+
+def split_sweep(config, vocab, devices) -> int:
+    """The 27-combo sweep over SWEEP_BARS corpus bars at full width, on one
+    device and spread over `devices` (one thread each): greedy tokens
+    equal up to near-ties, K1 launches = S = 1 chunks x layers in both.
+    Returns the K1 launches."""
+    import torch
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+    from etude_tpu_torch.weights import decoder_from_jax, init_decoder_params_np
+
+    model = decoder_from_jax(init_decoder_params_np(config, seed=0), config, "cuda:0")
+    bars = corpus_bars(vocab, SWEEP_BARS)
+    combos = [{"polyphony_bin": p, "rhythm_intensity_bin": r, "sustain_bin": s,
+               "pitch_overlap_bin": 1} for p in range(3) for r in range(3) for s in range(3)]
+    attrs = [[c] * len(bars) for c in combos]
+    engine = StreamingGenerationEngine(config, bar_bos_id=vocab.bar_bos_id,
+                                       bar_eos_id=vocab.bar_eos_id, pad_id=vocab.pad_id,
+                                       max_bar_token_limit=SWEEP_TOKENS)
+    runs, total = {}, 0
+    for name, kw in (("one card", {}), (f"{len(devices)} devices", {"devices": devices})):
+        engine.stats["single_token_chunks"] = 0
+        decode_attention.launches = 0
+        with _Margins() if not kw else contextlib.nullcontext() as rec:
+            t = time.perf_counter()
+            outs = engine.generate_batch(model, [bars] * len(combos), attrs, temperature=0.0, **kw)
+            wall = time.perf_counter() - t
+        chunks, launches = engine.stats["single_token_chunks"], decode_attention.launches
+        check_streams(outs, len(bars), vocab.bar_bos_id, vocab.bar_eos_id, config.vocab_size,
+                      SWEEP_TOKENS)
+        tokens = sum(len(b) - 1 for o in outs for b in o)
+        say(f"  sweep on {name}: 27 streams x {len(bars)} bars, {tokens} tokens in {wall:.3f} s "
+            f"= {tokens / wall:.1f} tok/s; {chunks} S=1 chunks, K1 launches {launches} "
+            f"(expected {chunks * config.num_hidden_layers})")
+        if launches == 0 or launches != chunks * config.num_hidden_layers:
+            raise RuntimeError(f"the sweep launched K1 {launches} times")
+        runs[name] = (outs, rec)
+        total += launches
+    (one, rec), (spread, _) = runs.values()
+    equal, ties, worst = sweep_divergence(one, spread, torch.stack(rec.margins).cpu())
+    say(f"  split sweep over {[str(d) for d in devices]}: {equal}/27 streams equal the "
+        f"one-card run, {ties} first diverge at a near-tie (top-2 margin < {TIE_MARGIN}); "
+        f"largest margin at a divergence {worst:.4g}")
+    if equal + ties != len(combos):
+        raise RuntimeError("the split sweep diverged from one card's away from a near-tie")
+    return total
+
+
+def dp_cli_parity(root: Path, n: int) -> None:
+    """The training CLI over n cards (`mesh.data_parallel` = n, one rank per
+    card) against one card, DP_CLI_STEPS steps of the same global batch at
+    full width under --strict-sync: every step's loss within the card-vs-CPU
+    step limit."""
+    from etude_tpu_torch import train
+
+    runs = {}
+    for dp in (1, n):
+        settings = train_settings(root / f"dp{dp}", ROOT / "dataset_distill/tokenized")
+        cfg = json.loads(settings.read_text())
+        settings.write_text(json.dumps({**cfg, "mesh": {"data_parallel": dp}}))
+        t = time.perf_counter()
+        run = train.run(["--config", str(settings), "--run-id", "r", "--max-steps",
+                         str(DP_CLI_STEPS), "--strict-sync"])
+        if run is None:
+            raise RuntimeError(f"the CLI over {dp} card(s) failed")
+        runs[dp] = run
+        say(f"  CLI, mesh.data_parallel {dp}: {DP_CLI_STEPS} steps in "
+            f"{time.perf_counter() - t:.2f} s of wall, warm median step "
+            f"{1e3 * statistics.median(run.step_seconds[1:]):.2f} ms; losses "
+            f"{run.losses[0]:.5f} .. {run.losses[-1]:.5f}")
+    gap = max(abs(a / b - 1) for a, b in zip(runs[n].losses, runs[1].losses, strict=True))
+    say(f"  CLI over {n} cards vs one: largest relative loss gap {gap:.3g} "
+        f"(limit {STEP_LOSS_RTOL})")
+    if gap > STEP_LOSS_RTOL:
+        raise RuntimeError(f"the data-parallel CLI left the one-card losses ({gap:.3g})")
+
+
+def sweep_cli(root: Path, n: int) -> int:
+    """`infer --decode-only --sweep` on a synthetic 8-bar work dir at full
+    decoder width (random weights, 32-token bars): the streaming engine
+    gets every card, 27 MIDI files parse. Returns the K1 launches."""
+    from etude_tpu_torch import infer
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    work = root / "outputs" / "infer" / "temp"
+    work.mkdir(parents=True)
+    (work / "tempo.json").write_text(json.dumps([{
+        "time_sig": 4, "bpm": 120.0, "start": 1.0,
+        "downbeats": [1.0 + 2.0 * i for i in range(8)]}]))
+    (work / "extract.json").write_text(json.dumps([
+        {"onset": 1.0 + 0.5 * i, "offset": 1.4 + 0.5 * i, "pitch": 48 + (7 * i) % 36,
+         "velocity": 80} for i in range(30)]))
+    (work / "volume.json").write_text(json.dumps([0.5] * 2000))
+    settings = pipeline_settings(root, ROOT)
+    seen = []
+    generate_batch = StreamingGenerationEngine.generate_batch
+
+    def spy(self, *args, **kw):
+        seen.append(kw.get("devices"))
+        return generate_batch(self, *args, **kw)
+
+    StreamingGenerationEngine.generate_batch = spy
+    decode_attention.launches = 0
+    t = time.perf_counter()
+    try:
+        rc = infer.main(["--config", str(settings), "--decode-only", "--sweep",
+                         "--allow-random-weights", "--output_name", "sweep", "--seed", "7"])
+    finally:
+        StreamingGenerationEngine.generate_batch = generate_batch
+    wall = time.perf_counter() - t
+    launches = decode_attention.launches
+    mids = sorted((root / "outputs" / "infer").glob("sweep_p*.mid"))
+    for m in mids:
+        read_midi_notes(m)
+    say(f"  infer --decode-only --sweep: rc {rc}, {len(mids)} MIDI files in {wall:.2f} s, "
+        f"devices passed {[str(d) for d in seen[0]] if seen and seen[0] else seen}, "
+        f"K1 launches {launches}")
+    if rc != 0 or len(mids) != 27 or not seen or len(seen[0] or []) != n or launches == 0:
+        raise RuntimeError("the CLI sweep did not run over every card")
+    return launches
+
+
+def multigpu_phase(root: Path, config, vocab, serve_config, serve_vocab) -> int:
+    """The multigpu phase; returns its K1 launches."""
+    import itertools
+
+    import torch
+    from etude_tpu_torch.entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    say(f"  multigpu phase at world size {n}: {n} card(s) visible"
+        + ("" if n > 1 else "; the checks over several cards need two or more"))
+    _, dataset, _ = corpus_subset(root / "subset", MESH_STEPS + 2, 32)
+    hosts = list(itertools.islice(dataset.batches(32, shuffle=True, seed=1234), MESH_STEPS + 2))
+    mesh_parity(root, config, hosts)
+    t = time.perf_counter()
+    dryrun_multichip(n)
+    say(f"  dryrun_multichip({n}): ok in {time.perf_counter() - t:.2f} s")
+    devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
+               else [torch.device("cuda", 0)] * 2)
+    launches = split_sweep(serve_config, serve_vocab, devices)
+    if n > 1:
+        launches += sweep_cli(root / "sweep_cli", n)
+        dp_cli_parity(root, n)
+        from etude_tpu_torch.tools import mesh_bench
+
+        for ranks, fsdp in sorted({(1, False), (2, False), (n, False), (n, True)}):
+            r = mesh_bench.run(ranks, fsdp=fsdp)
+            say(f"  mesh_bench {ranks} rank(s){' FSDP' if fsdp else ''}: warm step median "
+                f"{r['step_ms_median']:.2f} ms (min {r['step_ms_min']:.2f}, max "
+                f"{r['step_ms_max']:.2f}), {r['tokens_per_s']:,.0f} positions/s; collectives' "
+                f"share of device time {[round(x, 4) for x in r['collective_share']]}; peak "
+                f"memory per card {[round(p['peak_gib'], 3) for p in r['per_rank']]} GiB")
+            say("  mesh_bench " + json.dumps(r))
+    say(f"  multigpu phase ran at world size {n}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3255,7 +3665,7 @@ def main() -> int:
             f"{len(bars)} corpus bars, 16 streams, cache C = {main_C}")
         say(f"  host: {host_launch_us():.2f} us per eager launch (1-element add)")
         launches = 0
-        for kw, n_bars in (({"temperature": 0.0}, len(bars)),
+        for kw, n_bars in (({"temperature": 0.0}, GREEDY_BARS),
                            ({"temperature": 1.0, "top_p": 0.9, "seed": 1234}, SAMPLED_BARS)):
             outs, n = serve(engine, model, bars[:n_bars], attrs, **kw)
             check_streams(outs, n_bars, vocab.bar_bos_id, vocab.bar_eos_id,
@@ -3310,6 +3720,14 @@ def main() -> int:
         with phase("train"):
             k1, trained = train_phase(tmp / "train", tmp / "cli")
             launches += k1
+
+        with phase("multigpu"):
+            from etude_tpu_torch.config import load_config
+            from etude_tpu_torch.train import build_model_config
+
+            distill_vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
+            distill = build_model_config(load_config(None), len(distill_vocab))
+            launches += multigpu_phase(tmp / "multigpu", distill, distill_vocab, config, vocab)
 
         with phase("aux_train"):
             from etude_tpu_torch.utils.kernel_bench import L2Flush

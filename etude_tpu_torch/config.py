@@ -29,8 +29,11 @@ class EnvConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Read for the JAX package's settings files; the port trains on one
-    device (`train.check_single_device` raises on anything else)."""
+    """The training mesh (JAX schema :28-42): `data_parallel` ranks (one
+    per card; -1 sizes the axis as the JAX CLI does, `train.
+    data_parallel_size`), `model_parallel` (shards nothing, as in JAX:
+    its ranks hold replicas), and `fsdp`, which shards the parameters and
+    Adam moments over the data axis (parallel/train_step.py)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -209,11 +209,19 @@ class InferencePipeline:
                 for p in range(3) for r in range(3) for s in range(3)
             ]
             logger.step(f"Batched sweep over {len(combos)} attribute combos")
+            # Several cards: the streaming engine spreads the combos over all
+            # of them (JAX infer.py:212-219 shards them over a mesh).
+            devices = None
+            if (self.device.type == "cuda" and torch.cuda.device_count() > 1
+                    and self.engine_kind == "stream"):
+                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                logger.info(f"sweep spread over {len(devices)} cards")
             streams = engine.generate_batch(
                 model, [all_x_bars] * len(combos),
                 [[c] * len(all_x_bars) for c in combos],
                 temperature=d.temperature, top_p=d.top_p,
                 max_output_tokens=d.max_output_tokens, seed=seed, progress=True,
+                **({"devices": devices} if devices else {}),
             )
             for combo, bars in zip(combos, streams):
                 name = (f"{final_filename}_p{combo['polyphony_bin']}"

@@ -276,11 +276,15 @@ class EtudeDecoder(nn.Module):
 
 def loss_fn(model: EtudeDecoder, batch: Dict[str, torch.Tensor],
             compute_dtype: torch.dtype = torch.bfloat16,
-            remat: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            remat: bool = False,
+            n_labels: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean cross-entropy over labels != -100 from f32 logits (JAX
     `loss_fn` :300), with the label count and the accuracy. Batch keys:
     input_ids, class_ids, labels, attention_mask and {name}_bin_ids for each
-    attribute."""
+    attribute. `n_labels`, when given, divides the loss and accuracy sums
+    (and is the count returned) in place of this batch's label count: a
+    rank holding part of a micro-batch passes the whole micro-batch's."""
     attr_ids = {name: batch[f"{name}_bin_ids"] for name in ATTRIBUTE_ORDER}
     logits = model(batch["input_ids"], batch["class_ids"], attr_ids,
                    attention_mask=batch.get("attention_mask"),
@@ -290,7 +294,7 @@ def loss_fn(model: EtudeDecoder, batch: Dict[str, torch.Tensor],
     safe_labels = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits, dim=-1)
     token_ll = logp.gather(-1, safe_labels[..., None])[..., 0]
-    n_valid = valid.sum().clamp(min=1)
+    n_valid = valid.sum().clamp(min=1) if n_labels is None else n_labels
     loss = -(token_ll * valid).sum() / n_valid
     metrics = {
         "loss": loss,

@@ -46,9 +46,12 @@ the decode-attention kernel on every S = 1 step.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import copy
 import functools
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ import torch
 from ..data.tokenizer import SRC_CLASS_ID, TGT_CLASS_ID
 from ..ops.decode_attention import decode_attention
 from ..ops.sampling import sample_token
+from ..utils.device import with_index
 from ..utils.logger import logger
 from .decoder import (ATTRIBUTE_ORDER, EtudeDecoder, EtudeDecoderConfig, layer_step,
                       masked_attention)
@@ -479,10 +483,61 @@ class StreamingGenerationEngine:
         max_output_tokens: int = 25600,
         seed: int = 0,
         progress: bool = False,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ) -> List[List[List[int]]]:
-        """One list of bars per stream; every bar starts with Bar_BOS."""
+        """One list of bars per stream; every bar starts with Bar_BOS.
+
+        `devices` spreads the streams over several devices (JAX `mesh`
+        :715-749, which pads the stream count to the mesh): contiguous
+        shares in request order, as even as the count allows (27 over 4:
+        7, 7, 7, 6), each decoded on its device by a replica of the model
+        (`model` itself on its own device) in a thread of its own; the
+        outputs come back in request order. Greedy tokens are one device's
+        (up to that device's arithmetic: a card's bf16 products may flip a
+        near-tie between batch sizes). Each share samples from its own
+        generator, seeded `seed + share index`: sampled runs repeat for a
+        fixed seed and device count, and differ from one device's draws."""
         if not x_bars_per_stream:
             return []
+        kw = dict(temperature=temperature, top_p=top_p, max_output_tokens=max_output_tokens,
+                  progress=progress)
+        if devices is not None and len(devices) > 1 and len(x_bars_per_stream) > 1:
+            return self._generate_spread(model, x_bars_per_stream, attrs_per_stream,
+                                         devices, seed, kw)
+        return self._generate(model, x_bars_per_stream, attrs_per_stream, seed=seed,
+                              stats=self.stats, **kw)
+
+    def _generate_spread(self, model, x_bars_per_stream, attrs_per_stream, devices,
+                         seed, kw) -> List[List[List[int]]]:
+        n = len(x_bars_per_stream)
+        devices = [with_index(d) for d in devices][:n]
+        k = len(devices)
+        bounds = np.cumsum([0] + [n // k + (i < n % k) for i in range(k)])
+        home = next(model.parameters()).device
+        replicas = {home: model}
+        for d in devices:
+            if d not in replicas:
+                replicas[d] = copy.deepcopy(model).to(d)
+
+        def share(i):
+            d, lo, hi = devices[i], bounds[i], bounds[i + 1]
+            stats = {"single_token_chunks": 0}
+            guard = torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
+            with guard:
+                out = self._generate(replicas[d], x_bars_per_stream[lo:hi],
+                                     attrs_per_stream[lo:hi], seed=seed + i, stats=stats, **kw)
+            return out, stats
+
+        with concurrent.futures.ThreadPoolExecutor(k) as pool:
+            results = [f.result() for f in [pool.submit(share, i) for i in range(k)]]
+        outputs: List[List[List[int]]] = []
+        for out, stats in results:
+            outputs += out
+            self.stats["single_token_chunks"] += stats["single_token_chunks"]
+        return outputs
+
+    def _generate(self, model, x_bars_per_stream, attrs_per_stream, *, temperature,
+                  top_p, max_output_tokens, seed, progress, stats):
         packed = self.pack(x_bars_per_stream, attrs_per_stream)
         if packed["num_bars"] == 0:
             return [[] for _ in x_bars_per_stream]
@@ -511,7 +566,7 @@ class StreamingGenerationEngine:
             prompt_keep=self.prompt_keep,
             max_hi=packed["max_hi"],
             kv_quant=self.kv_quant,
-            stats=self.stats,
+            stats=stats,
         )
         y_tokens = y_tokens.cpu().numpy()
         y_counts = y_counts.cpu().numpy()

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
@@ -34,6 +35,16 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches` (a kernel wrapper's count of launches
+    since it was last set to 0). Safe from several threads: the streams of a
+    sweep spread over cards launch from one thread per card."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:
@@ -112,10 +123,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `name`, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+    """The loaded library for `name`, built first if needed (one thread
+    builds it; the others wait)."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
     return lib

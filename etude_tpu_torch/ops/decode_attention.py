@@ -112,7 +112,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch the kernel, one
     cluster launch of B*H*CLUSTER blocks (q f32, k/v bf16, bias f32, all
     contiguous, D = 64, C <= max_cache_len()), or raise; there is no
-    fallback. Each launch adds one to `decode_attention.launches`.
+    fallback. The kernel runs on the tensors' device, whichever is current.
+    Each launch adds one to `decode_attention.launches` (from any thread).
     """
     tensors = (q, k, v, bias)
     if all(t.device.type == "cpu" for t in tensors):
@@ -123,12 +124,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda_inputs(q, k, v, bias)
     B, H, C, D = k.shape
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), B, H, C, D, stream)
+    # The launcher launches on the runtime's current device (and sets the
+    # kernel's shared-memory attribute there): make it q's.
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                         out.data_ptr(), B, H, C, D, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return out
 
 

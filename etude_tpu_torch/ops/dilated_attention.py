@@ -211,13 +211,14 @@ def _forward_kernel(q, k, v, er, dilation, head7_bug):
     B, H, T, d = q.shape
     er_t = _er_rows(er)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), er_t.data_ptr(),
-                     out.data_ptr(), B, H, T, d, ATTN_LEN, dilation,
-                     int(head7_bug and H == 8), _first_offsets(H), stream)
+    with torch.cuda.device(q.device):   # the launcher uses the current device
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), er_t.data_ptr(),
+                         out.data_ptr(), B, H, T, d, ATTN_LEN, dilation,
+                         int(head7_bug and H == 8), _first_offsets(H), stream)
     if rc != 0:
         raise RuntimeError(f"dilated_attention kernel launch failed: CUDA error {rc}")
-    dilated_attention.launches += 1
+    _build.count_launch(dilated_attention)
     return out
 
 
@@ -248,15 +249,16 @@ def dilated_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     tiles = len(backward_tiles(T, dilation, int(head_offsets(H, ATTN_LEN)[0, 0])))
     part = torch.empty(H * ATTN_LEN * d, B * tiles, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _backward_launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), er_c.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
-        B, H, T, d, ATTN_LEN, dilation, int(head7_bug and H == 8),
-        int(er_c.dtype == torch.bfloat16), _first_offsets(H), stream)
+    with torch.cuda.device(q.device):   # the launcher uses the current device
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _backward_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), er_c.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part.data_ptr(),
+            B, H, T, d, ATTN_LEN, dilation, int(head7_bug and H == 8),
+            int(er_c.dtype == torch.bfloat16), _first_offsets(H), stream)
     if rc != 0:
         raise RuntimeError(f"dilated_attention backward launch failed: CUDA error {rc}")
-    dilated_attention_backward.launches += 1
+    _build.count_launch(dilated_attention_backward)
     der = part.sum(dim=1).view(H, ATTN_LEN, d).transpose(1, 2)   # [H, d, A]
     return dq, dk, dv, der
 

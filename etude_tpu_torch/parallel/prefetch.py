@@ -2,10 +2,11 @@
 etude_tpu/parallel/prefetch.py).
 
 A background thread builds the numpy batches, reshapes them to
-[accum, B/accum, T], pins them and copies them to the card on a stream of
-its own, ahead of use; the consumer's stream waits on each batch's copy
-event, and each tensor is recorded on the consumer's stream so the allocator
-keeps its memory until the step that reads it is done. On the CPU the same
+[accum, B/accum, T] (under a mesh, keeps this rank's rows of them), pins
+them and copies them to the card on a stream of its own, ahead of use; the
+consumer's stream waits on each batch's copy event, and each tensor is
+recorded on the consumer's stream so the allocator keeps its memory until
+the step that reads it is done. On the CPU the same
 thread hands over plain tensors.
 
 `prefetch` is the auxiliary models' host pipeline (scripts/
@@ -22,6 +23,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from .mesh import shard_batch
 from .train_step import reshape_for_accum
 
 
@@ -107,16 +109,13 @@ class _OnStream:
         self._prefetcher.close()
 
 
-def prefetch_to_device(batch_iter, device, accum_steps: int):
-    """The single-device counterpart of the JAX package's
-    `prefetch_to_mesh` (:64): [B, T] host batches become [accum, B/accum, T]
-    tensors on `device`, built and copied ahead of use. Call `close()` when
-    leaving before the iterator is exhausted."""
+def _prefetch(batch_iter, device, host_fn):
+    """`host_fn(batch)` of each host batch as tensors on `device`, built on a
+    background thread and, on the card, copied on a side stream."""
     device = torch.device(device)
 
     def to_tensors(batch):
-        return {k: torch.from_numpy(v) for k, v in
-                reshape_for_accum(batch, accum_steps).items()}
+        return {k: torch.from_numpy(v) for k, v in host_fn(batch).items()}
 
     if device.type != "cuda":
         return DevicePrefetcher(batch_iter, place=to_tensors)
@@ -131,6 +130,25 @@ def prefetch_to_device(batch_iter, device, accum_steps: int):
         return out, copied
 
     return _OnStream(DevicePrefetcher(batch_iter, place=place), device)
+
+
+def prefetch_to_device(batch_iter, device, accum_steps: int):
+    """The single-device counterpart of the JAX package's
+    `prefetch_to_mesh` (:64): [B, T] host batches become [accum, B/accum, T]
+    tensors on `device`, built and copied ahead of use. Call `close()` when
+    leaving before the iterator is exhausted."""
+    return _prefetch(batch_iter, device, lambda b: reshape_for_accum(b, accum_steps))
+
+
+def prefetch_to_mesh(batch_iter, mesh, accum_steps: int):
+    """The JAX package's `prefetch_to_mesh` (:64) for one rank: every rank
+    iterates the dataset in the same seeded order and, of each [B, T] host
+    batch reshaped to [accum, B/accum, T], keeps its rows of every
+    micro-batch and the micro-batches' global label counts
+    (`mesh.shard_batch`), built and copied to `mesh.device` ahead of use.
+    Call `close()` when leaving before the iterator is exhausted."""
+    return _prefetch(batch_iter, mesh.device,
+                     lambda b: shard_batch(reshape_for_accum(b, accum_steps), mesh))
 
 
 def prefetch(gen_fn: Callable[[int], Any], n_steps: int, depth: int = 4,

@@ -15,20 +15,47 @@ The auxiliary models' step (`make_aux_optimizer`, `make_aux_train_step`) is
 the jitted step of scripts/train_aux_synthetic.py `train_loop` (:69-95): the
 same AdamW with its own schedule and b2, one batch, no skip.
 
-Multi-device training (the JAX package's data-parallel mesh and
-`init_sharded_state` :79, FSDP) is not ported; `train.py` raises on it.
+Over a mesh (parallel/mesh.py; JAX `make_train_step(mesh=...)` :118 and
+`init_sharded_state` :79), every rank runs the same step on its rows of each
+micro-batch, and the step calls the collectives that XLA derives in JAX:
+
+- The loss is JAX's token-weighted mean over the whole micro-batch: each
+  rank divides its token-loss sum by the micro-batch's label count over
+  every rank (`n_labels`, counted on the host by `mesh.shard_batch`), and
+  the gradients are summed across ranks. (An average of per-rank means,
+  DistributedDataParallel's default, differs whenever ranks hold different
+  label counts.)
+- One reduction per optimizer step: the `accum` micro-batch gradients are
+  summed on each rank first.
+- The skip and the clip are global: the finiteness test and the norm are
+  those of the reduced gradients, the same on every rank.
+- Replicated parameters (data parallelism): one all-reduce of the flat
+  gradient vector. FSDP (`init_sharded_state(fsdp=True)`): each rank holds
+  its shard of a flat partition of the f32 parameters and of both Adam
+  moments (`mesh.fsdp_param_sharding`); the parameters are all-gathered for
+  the forward and freed after the backward, the gradients reduce-scattered,
+  and each rank updates its shard. The numbers are data parallelism's; only
+  the memory differs.
+- The model axis shards nothing, as in JAX, whose step uses only the data
+  axis.
+
+No collective reads a value back to the host, so a step under a mesh is as
+free of host synchronization as one without.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.decoder import EtudeDecoder, EtudeDecoderConfig, loss_fn
+from .mesh import FlatShard, Mesh, flat_layout, fsdp_param_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,14 +119,17 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: AdamWState,
-               params: List[torch.Tensor], apply: torch.Tensor) -> torch.Tensor:
+               params: List[torch.Tensor], apply: torch.Tensor,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Clip `grads` in place, then update `params` and `state` in place
         where the 0-dim bool tensor `apply` is true; where it is false,
         params and state keep their bits (the count does not advance, so
         neither the schedule nor the bias correction does: JAX
         `skip_update` :181-184). Returns the global norm of `grads` as
-        given, before the clip."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        given, before the clip: `norm` when the caller computed it (a rank
+        holding a shard of the gradients), else the norm of `grads`."""
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # optax clip_by_global_norm: g * max / |g| only when |g| >= max (no
         # epsilon, unlike torch.nn.utils.clip_grad_norm_).
         scale = torch.where(norm < self.clip_grad_norm, torch.ones_like(norm),
@@ -215,12 +245,19 @@ def init_train_state(model: EtudeDecoder, tx: AdamW) -> TrainState:
 
 def make_train_step(config: EtudeDecoderConfig, tx: AdamW,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    remat: bool = False):
+                    remat: bool = False, mesh: Optional[Mesh] = None):
     """The step function: `step(state, batch)` takes batch tensors shaped
     [accum_steps, micro_batch, T] on the model's device, updates `state` in
     place and returns device-side metrics (loss, accuracy, grads_finite,
     grad_norm and the label count n_tokens); nothing in it reads a value
-    back to the host."""
+    back to the host.
+
+    With a mesh, every rank of its data axis calls the step together, with
+    its rows of each micro-batch and their `n_labels` (`mesh.shard_batch`),
+    on a state from `init_sharded_state`; the metrics are the whole
+    batch's, the same on every rank."""
+    if mesh is not None:
+        return _mesh_train_step(tx, compute_dtype, remat, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         params = state.params()
@@ -249,6 +286,195 @@ def make_train_step(config: EtudeDecoderConfig, tx: AdamW,
             "grads_finite": finite.int(),
             "grad_norm": grad_norm,
             "n_tokens": n_tokens,
+        }
+
+    return step
+
+
+@dataclasses.dataclass
+class ShardedTrainState:
+    """The FSDP state of one rank: its `layout.shard` elements of the flat
+    f32 parameter vector (`shard`) and of both Adam moments
+    (`opt_state.mu[0]`, `opt_state.nu[0]`), and the replicated scalars.
+    The model's parameters are views of `full`, the whole padded vector,
+    whose storage exists only between `gather()` and `release()`: inside
+    the step, and inside `gathered()`."""
+
+    model: EtudeDecoder
+    opt_state: AdamWState
+    step: torch.Tensor
+    skipped: torch.Tensor
+    mesh: Mesh
+    layout: FlatShard
+    shard: torch.Tensor
+    full: torch.Tensor
+    piece_index: torch.Tensor   # int64: the parameter of each piece of the shard
+
+    def params(self) -> List[torch.Tensor]:
+        return list(self.model.parameters())
+
+    def gather(self) -> None:
+        """All-gather the shards into the model's parameters (a collective:
+        every rank of the data axis calls it)."""
+        self.full.untyped_storage().resize_(self.full.numel() * self.full.element_size())
+        all_gather(self.full, self.shard, self.mesh)
+
+    def release(self) -> None:
+        self.full.untyped_storage().resize_(0)
+
+    @contextlib.contextmanager
+    def gathered(self):
+        self.gather()
+        try:
+            yield self
+        finally:
+            self.release()
+
+
+def all_gather(out: torch.Tensor, shard: torch.Tensor, mesh: Mesh) -> None:
+    """`out` = the data axis's shards in rank order (a copy without a group)."""
+    if mesh.group is None:
+        out.copy_(shard)
+    else:
+        # torch 2.13 renames all_gather_into_tensor (the card's 2.11 has it).
+        getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+            out, shard, group=mesh.group)
+
+
+def full_params(state) -> Dict[str, torch.Tensor]:
+    """Copies of every parameter under its name; an FSDP state gathers them
+    (a collective: every rank of the data axis calls it)."""
+    with state.gathered() if isinstance(state, ShardedTrainState) else contextlib.nullcontext():
+        return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+
+def init_sharded_state(model: EtudeDecoder, tx: AdamW, mesh: Mesh,
+                       fsdp: bool = False):
+    """The train state of `model` (f32, on `mesh.device`, the same weights on
+    every rank) over `mesh` (JAX `init_sharded_state` :79): replicated, as
+    `init_train_state`, or with fsdp=True a `ShardedTrainState` holding this
+    rank's flat shard of the parameters and moments."""
+    params = list(model.parameters())
+    if any(p.device != mesh.device or p.dtype != torch.float32 for p in params):
+        raise ValueError(f"the model must hold f32 parameters on {mesh.device}")
+    if not fsdp:
+        return init_train_state(model, tx)
+    model.train().requires_grad_(True)
+    layout = fsdp_param_sharding(mesh, params)
+    full = torch.zeros(layout.padded, dtype=torch.float32, device=mesh.device)
+    with torch.no_grad():
+        for p, view in zip(params, flat_views(full, layout)):
+            view.copy_(p)
+            p.data = view
+    shard = full[layout.lo:layout.hi].clone()
+    pieces = layout.pieces()
+    state = ShardedTrainState(
+        model=model, opt_state=tx.init([shard]),
+        step=torch.zeros((), dtype=torch.int32, device=mesh.device),
+        skipped=torch.zeros((), dtype=torch.int32, device=mesh.device),
+        mesh=mesh, layout=layout, shard=shard, full=full,
+        piece_index=torch.tensor([j for j, _, _ in pieces], dtype=torch.int64,
+                                 device=mesh.device))
+    state.release()
+    return state
+
+
+def flat_views(flat: torch.Tensor, layout: FlatShard) -> List[torch.Tensor]:
+    """Each parameter's slot of a flat vector laid out by `layout`, shaped
+    as the parameter."""
+    return [flat[off:off + math.prod(shape)].view(shape)
+            for off, shape in zip(layout.offsets, layout.shapes)]
+
+
+def _flat_grads(params: List[torch.Tensor], layout: FlatShard) -> torch.Tensor:
+    """The parameters' gradients in one zeroed flat vector laid out by
+    `layout` (all of it, not one shard)."""
+    flat = torch.zeros(layout.padded, dtype=torch.float32, device=params[0].device)
+    torch._foreach_copy_(flat_views(flat, layout), [p.grad for p in params])
+    return flat
+
+
+def _mesh_train_step(tx: AdamW, compute_dtype: torch.dtype, remat: bool, mesh: Mesh):
+    group = mesh.group
+
+    def reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
+        if group is not None:
+            dist.all_reduce(t, op=op, group=group)
+
+    def backward(state, batch, layout):
+        """Each micro-batch's loss sum over the global label count,
+        backpropagated; returns the summed gradients as one flat vector and
+        the whole batch's (mean loss, mean accuracy)."""
+        params = state.params()
+        for p in params:
+            p.grad = None
+        accum = batch["input_ids"].shape[0]
+        loss_sum = acc_sum = 0
+        for i in range(accum):
+            micro = {k: v[i] for k, v in batch.items() if k != "n_labels"}
+            loss, metrics = loss_fn(state.model, micro, compute_dtype, remat,
+                                    n_labels=batch["n_labels"][i])
+            loss.backward()   # sums the micro-batch gradients in .grad
+            loss_sum = loss_sum + loss.detach()
+            acc_sum = acc_sum + metrics["accuracy"]
+        flat = _flat_grads(params, layout)
+        for p in params:
+            p.grad = None
+        means = torch.stack([loss_sum, acc_sum])
+        reduce(means)
+        return flat, means / accum
+
+    def replicated_update(state: TrainState, batch):
+        params = state.params()
+        layout = flat_layout(params)
+        flat, means = backward(state, batch, layout)
+        reduce(flat)
+        grads = flat_views(flat, layout)
+        torch._foreach_div_(grads, batch["input_ids"].shape[0])
+        finite = torch.stack([g.isfinite().all() for g in grads]).all()
+        return means, finite, tx.update(grads, state.opt_state, params, finite)
+
+    def sharded_update(state: ShardedTrainState, batch):
+        layout = state.layout
+        with state.gathered():
+            flat, means = backward(state, batch, layout)
+        if group is None:
+            grad = flat
+        else:
+            grad = flat.new_empty(layout.shard)
+            getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+                grad, flat, group=group)
+        del flat
+        torch._foreach_div_([grad], batch["input_ids"].shape[0])
+        finite = grad.isfinite().all().int()
+        reduce(finite, dist.ReduceOp.MIN)
+        finite = finite.bool()
+        # The global norm as the replicated step computes it: the norm of the
+        # per-parameter norms, each from its pieces' squares summed over ranks
+        # (in f64, so a parameter held whole comes back to its own f32 norm).
+        pieces = [grad[a:b] for _, a, b in layout.pieces()]
+        squares = torch.zeros(len(layout.shapes), dtype=torch.float64, device=grad.device)
+        if pieces:
+            squares.index_copy_(0, state.piece_index,
+                                torch.stack(torch._foreach_norm(pieces)).double() ** 2)
+        reduce(squares)
+        norm = torch.linalg.vector_norm(squares.sqrt().float())
+        return means, finite, tx.update([grad], state.opt_state, [state.shard], finite,
+                                        norm=norm)
+
+    def step(state, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        if isinstance(state, ShardedTrainState):
+            means, finite, grad_norm = sharded_update(state, batch)
+        else:
+            means, finite, grad_norm = replicated_update(state, batch)
+        state.step += 1
+        state.skipped += (~finite).int()
+        return {
+            "loss": means[0],
+            "accuracy": means[1],
+            "grads_finite": finite.int(),
+            "grad_norm": grad_norm,
+            "n_tokens": batch["n_labels"].sum(),
         }
 
     return step

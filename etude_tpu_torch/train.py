@@ -1,18 +1,29 @@
-"""Train the EtudeDecoder on one GPU (JAX counterpart: the root train.py).
+"""Train the EtudeDecoder on one GPU or several (JAX counterpart: the root
+train.py).
 
     python -m etude_tpu_torch.train --config distill.json [--device cpu]
+    python -m torch.distributed.run --nproc-per-node 4 -m etude_tpu_torch.train ...
 
 The same flags, settings and arithmetic as the JAX package's CLI
 (steps_per_epoch, warmup and total steps; `init_from` warm start; one
 `metrics.jsonl` line per epoch with the same keys; `--save-every-steps`
 checkpoints inside an epoch, and a resume restarts the interrupted epoch
-with the step count and schedule carried over), on one device: fixed-shape
-batches from `data/dataset.py`, built and copied to the card ahead of use
+with the step count and schedule carried over): fixed-shape batches from
+`data/dataset.py`, built and copied to the card ahead of use
 (`parallel/prefetch.py`), one accumulating AdamW step
 (`parallel/train_step.py`) whose losses stay on the card until the epoch
 ends, checkpoints in the port's own format (`utils/training.py`). The run
 ends with a params-only export, `model/`, beside `vocab.json` and the config:
 what `python -m etude_tpu_torch.infer` loads through `paths.decoder_model`.
+
+Several cards: the `mesh` settings size the data axis as the JAX CLI does
+(`data_parallel_size`). When that asks for more than one rank and the
+process is in no group, the CLI starts one process per rank itself (rank r
+on card r; gloo processes with --device cpu) and waits for them; under
+`torch.distributed.run` each process joins the group that exists, which
+also spans hosts. Each rank keeps its rows of every batch; `mesh.fsdp`
+shards the parameters and Adam moments. Rank 0 alone logs, writes
+`metrics.jsonl` and checkpoints, and exports. Fewer cards than ranks raises.
 """
 
 from __future__ import annotations
@@ -23,25 +34,31 @@ import dataclasses
 import json
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import load_config
 from .data.dataset import EtudeDataset
 from .data.vocab import Vocab
 from .models.decoder import EtudeDecoderConfig, param_count
-from .parallel.prefetch import prefetch_to_device
-from .parallel.train_step import init_train_state, make_optimizer, make_train_step
+from .parallel.mesh import initialize_multihost, make_mesh
+from .parallel.prefetch import prefetch_to_device, prefetch_to_mesh
+from .parallel.train_step import (
+    full_params, init_sharded_state, init_train_state, make_optimizer, make_train_step,
+)
 from .utils.device import resolve_device
 from .utils.logger import logger
 from .utils.training import (
-    load_checkpoint, load_params_only, save_checkpoint, save_params_only, set_seed,
+    is_writer, load_checkpoint, load_params_only, save_checkpoint, save_params_only,
+    set_seed,
 )
-from .weights import decoder_from_jax, decoder_to_jax, init_decoder_params_np
+from .weights import decoder_from_jax, decoder_state_to_jax, init_decoder_params_np
 
 
 def build_model_config(cfg, vocab_size: int) -> EtudeDecoderConfig:
@@ -62,15 +79,17 @@ def build_model_config(cfg, vocab_size: int) -> EtudeDecoderConfig:
     )
 
 
-def check_single_device(mesh) -> None:
-    """The port trains on one device: a mesh the JAX package would spread
-    over several raises rather than being ignored."""
-    if mesh.fsdp or mesh.data_parallel > 1 or mesh.model_parallel > 1:
-        raise NotImplementedError(
-            f"mesh settings {mesh} ask for multi-device training (data "
-            "parallelism or FSDP), which etude_tpu_torch has not ported yet "
-            "(ROADMAP.md, Queue 1 item 5: multi-GPU training); the port "
-            "trains on one device (data_parallel -1 or 1, fsdp false)")
+def data_parallel_size(data_parallel: int, model_parallel: int, n_devices: int,
+                       batch_size: int) -> int:
+    """The data axis's size by the JAX CLI's rule (train.py:146-152): as set,
+    or for -1 the devices that model_parallel leaves, at most the
+    micro-batch, lowered until it divides the micro-batch."""
+    if data_parallel != -1:
+        return data_parallel
+    dp = min(n_devices // max(model_parallel, 1), batch_size)
+    while dp > 1 and batch_size % dp:
+        dp -= 1
+    return max(dp, 1)
 
 
 @contextlib.contextmanager
@@ -142,13 +161,34 @@ def run(argv=None) -> Optional[TrainRun]:
     if args.resume is not None:
         tc.resume_from_checkpoint = args.resume
     run_id = args.run_id or tc.run_id or time.strftime("%Y%m%d_%H%M%S")
-    check_single_device(cfg.mesh)
     device = resolve_device(args.device)
+    initialize_multihost(device=device)   # joins torch.distributed.run's group
+    grouped = dist.is_initialized()
+    n_devices = (dist.get_world_size() if grouped
+                 else torch.cuda.device_count() if device.type == "cuda" else 1)
+    model_parallel = max(cfg.mesh.model_parallel, 1)
+    dp = data_parallel_size(cfg.mesh.data_parallel, model_parallel, n_devices,
+                            tc.batch_size)
+    if not grouped and dp * model_parallel > 1:
+        return _spawn_ranks(argv, dp * model_parallel, device)
+    mesh = None
+    if grouped or cfg.mesh.fsdp:
+        mesh = make_mesh(dp, model_parallel, devices=None if grouped else [device])
+        device = mesh.device
+    if grouped:
+        ids = [run_id]
+        dist.broadcast_object_list(ids, src=0)   # one run dir for every rank
+        run_id = ids[0]
+        if not is_writer():
+            logger.level = max(logger.level, 30)   # rank 0 alone logs
 
     set_seed(cfg.env.seed)
     logger.stage("Setup")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.info(f"device: {device} ({name})")
+    if mesh is not None:
+        logger.info(f"mesh: {mesh.data_parallel} data x {mesh.model_parallel} model "
+                    f"rank(s){', FSDP' if cfg.mesh.fsdp else ''}")
 
     vocab = Vocab.load(cfg.paths.dataset_vocab)
     logger.info(f"vocab: {len(vocab)} tokens")
@@ -202,8 +242,11 @@ def run(argv=None) -> Optional[TrainRun]:
         clip_grad_norm=tc.clip_grad_norm,
     )
     compute_dtype = torch.bfloat16 if cfg.env.compute_dtype == "bfloat16" else torch.float32
-    state = init_train_state(model, tx)
-    train_step = make_train_step(model_config, tx, compute_dtype=compute_dtype)
+    if mesh is None:
+        state = init_train_state(model, tx)
+    else:
+        state = init_sharded_state(model, tx, mesh, fsdp=cfg.mesh.fsdp)
+    train_step = make_train_step(model_config, tx, compute_dtype=compute_dtype, mesh=mesh)
 
     ckpt_dir = Path(cfg.paths.train_output_dir) / run_id
     start_epoch = 0
@@ -238,11 +281,12 @@ def run(argv=None) -> Optional[TrainRun]:
         t_epoch = time.time()
         losses = []
         marks = [mark()]
-        batches = prefetch_to_device(
-            dataset.batches(batch_size=global_batch, shuffle=True,
-                            seed=cfg.env.seed + epoch),
-            device, accum,
-        )
+        host_batches = dataset.batches(batch_size=global_batch, shuffle=True,
+                                       seed=cfg.env.seed + epoch)
+        if mesh is None:
+            batches = prefetch_to_device(host_batches, device, accum)
+        else:
+            batches = prefetch_to_mesh(host_batches, mesh, accum)
         # Losses stay on the device inside the loop; a per-step float()
         # would stall the launch queue on the host↔device round trip. Steps
         # are counted on the host (state.step grows by exactly 1 per step,
@@ -287,20 +331,21 @@ def run(argv=None) -> Optional[TrainRun]:
         counts = dataset.history_counts
         logger.info(f"history: {counts['rollout']}/{counts['chunks']} chunks drawn so far "
                     "had model-rollout bars")
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
-        with open(ckpt_dir / "metrics.jsonl", "a", encoding="utf-8") as f:
-            f.write(json.dumps({
-                "epoch": epoch + 1,
-                "step": int(state.step),
-                "loss": float(np.mean(losses)),
-                "lr": lr,
-                "skipped_updates": int(state.skipped),
-                "seconds": dt,
-                "tokens_per_sec": (
-                    len(losses) * global_batch * tc.max_seq_len / dt
-                    if dt > 0 else 0.0
-                ),
-            }) + "\n")
+        if is_writer():
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
+            with open(ckpt_dir / "metrics.jsonl", "a", encoding="utf-8") as f:
+                f.write(json.dumps({
+                    "epoch": epoch + 1,
+                    "step": int(state.step),
+                    "loss": float(np.mean(losses)),
+                    "lr": lr,
+                    "skipped_updates": int(state.skipped),
+                    "seconds": dt,
+                    "tokens_per_sec": (
+                        len(losses) * global_batch * tc.max_seq_len / dt
+                        if dt > 0 else 0.0
+                    ),
+                }) + "\n")
         save_checkpoint(
             ckpt_dir, state, epoch=epoch + 1, global_step=int(state.step),
             model_config=model_config,
@@ -311,8 +356,11 @@ def run(argv=None) -> Optional[TrainRun]:
 
     # Export inference weights (params-only) + vocab + config: the layout
     # infer.py's model loader consumes (paths.decoder_model/_config/_vocab).
-    save_params_only(ckpt_dir / "model", decoder_to_jax(state.model), model_config)
-    vocab.save(ckpt_dir / "vocab.json")
+    params = full_params(state)
+    if is_writer():
+        save_params_only(ckpt_dir / "model", decoder_state_to_jax(params, model_config),
+                         model_config)
+        vocab.save(ckpt_dir / "vocab.json")
     logger.success(f"training complete → {ckpt_dir}")
     logger.info(f"inference weights: {ckpt_dir / 'model'} "
                 "(point paths.decoder_model here)")
@@ -320,6 +368,44 @@ def run(argv=None) -> Optional[TrainRun]:
     return TrainRun(ckpt_dir=ckpt_dir, load_seconds=load_seconds, losses=all_losses,
                     step_seconds=step_seconds, label_tokens=int(label_tokens),
                     chunks=counts["chunks"], rollout_chunks=counts["rollout"])
+
+
+def _rank_main(rank: int, world: int, address: str, device: str, argv: List[str],
+               record: str) -> None:
+    """One rank of `_spawn_ranks`: join the group, run the CLI, and on rank 0
+    write the TrainRun to `record` as JSON."""
+    if device == "cpu":   # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    initialize_multihost(address, world, rank, device=device)
+    try:
+        result = run(argv)
+        if rank == 0 and result is not None:
+            Path(record).write_text(json.dumps(
+                {**dataclasses.asdict(result), "ckpt_dir": str(result.ckpt_dir)}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(argv, world: int, device: torch.device) -> Optional[TrainRun]:
+    """Run the CLI in `world` processes, rank r on card r (gloo processes on
+    the CPU), rendezvousing through a file store, and return rank 0's
+    TrainRun. A rank that fails ends the others and raises here."""
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise RuntimeError(f"the mesh settings ask for {world} ranks, one per card, but "
+                           f"{torch.cuda.device_count()} card(s) are visible")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    logger.info(f"starting {world} ranks ({'NCCL' if device.type == 'cuda' else 'gloo'})")
+    with tempfile.TemporaryDirectory(prefix="etude_train_") as tmp:
+        record = Path(tmp) / "run.json"
+        ranks = torch.multiprocessing.start_processes(
+            _rank_main, args=(world, f"file://{tmp}/store", device.type, argv, str(record)),
+            nprocs=world, join=False, start_method="spawn")
+        while not ranks.join():
+            pass
+        if not record.exists():
+            return None
+        fields = json.loads(record.read_text())
+    return TrainRun(**{**fields, "ckpt_dir": Path(fields["ckpt_dir"])})
 
 
 def main(argv=None) -> int:

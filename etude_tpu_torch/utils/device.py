@@ -20,6 +20,14 @@ def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.dev
     return device
 
 
+def with_index(device: Union[str, torch.device]) -> torch.device:
+    """`device` with its index: a bare `cuda` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def compute_dtype_for(device: torch.device) -> torch.dtype:
     """bf16 on the card, as the JAX package's production calls run; f32 on
     the CPU, where the port is the reference its card runs are held to."""

@@ -23,6 +23,12 @@ orbax):
   checkpoint; scheduled epochs are copied to `epoch_NNNN`. Beside them,
   `metadata.json` ({epoch, global_step, model_config}) and
   `etude_decoder_config.json`, with the JAX package's keys.
+
+Under a process group (multi-GPU training), rank 0 alone writes, the full
+tree whatever the layout (an FSDP state's shards are gathered first, which
+every rank joins), and every rank waits at a barrier after the save; every
+rank loads the same files onto its own layout. So a checkpoint of one rank
+count resumes under another.
 """
 
 from __future__ import annotations
@@ -36,9 +42,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .logger import logger
 from ..models.decoder import EtudeDecoderConfig
+from ..parallel.train_step import ShardedTrainState, all_gather, flat_views, full_params
 from ..weights import ParamTree, decoder_state_from_jax, decoder_state_to_jax, rebuild_lists
 
 PARAMS_FILE = "params.npz"
@@ -88,24 +96,79 @@ def is_params_dir(path: Union[str, Path]) -> bool:
     return (Path(path) / PARAMS_FILE).is_file()
 
 
+def is_writer() -> bool:
+    """True where files are written: the only process, or rank 0 of a
+    process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """Wait for every rank of the process group (none: return)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def full_moments(state: Any) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(mu, nu) under the parameters' names, whole: an FSDP state's shards
+    are gathered (a collective)."""
+    names = [name for name, _ in state.model.named_parameters()]
+    if not isinstance(state, ShardedTrainState):
+        return dict(zip(names, state.opt_state.mu)), dict(zip(names, state.opt_state.nu))
+    out = []
+    for shard in (state.opt_state.mu[0], state.opt_state.nu[0]):
+        full = shard.new_empty(state.layout.padded)
+        all_gather(full, shard, state.mesh)
+        out.append(dict(zip(names, flat_views(full, state.layout))))
+    return out[0], out[1]
+
+
 def save_checkpoint(
     checkpoint_dir: Union[str, Path],
-    state: Any,                      # parallel.train_step.TrainState
+    state: Any,                      # parallel.train_step.TrainState or ShardedTrainState
     epoch: int,
     global_step: int,
     model_config: EtudeDecoderConfig,
     is_save_epoch: bool = False,
 ) -> Path:
     """Write `latest` (always) and an `epoch_NNNN` copy on save epochs.
-    Reads the state back to the host (one synchronization)."""
+    Reads the state back to the host (one synchronization). Under a
+    process group every rank calls it: rank 0 writes, then all wait."""
     checkpoint_dir = Path(checkpoint_dir).resolve()
+    latest = checkpoint_dir / "latest"
+    params = full_params(state)
+    mu, nu = full_moments(state)
+    if is_writer():
+        _write_checkpoint(checkpoint_dir, state, params, mu, nu, model_config)
+    del params, mu, nu
+    if is_writer():
+        meta = {
+            "epoch": epoch,
+            "global_step": global_step,
+            "model_config": dataclasses.asdict(model_config),
+        }
+        with open(checkpoint_dir / "metadata.json", "w", encoding="utf-8") as f:
+            json.dump(meta, f, indent=2)
+        model_config.to_json_file(checkpoint_dir / "etude_decoder_config.json")
+        if is_save_epoch:
+            epoch_dir = checkpoint_dir / f"epoch_{epoch:04d}"
+            if epoch_dir.exists():
+                shutil.rmtree(epoch_dir)
+            shutil.copytree(latest, epoch_dir)
+            logger.debug(f"checkpoint copied to {epoch_dir}")
+        logger.debug(f"checkpoint saved to {latest} (epoch {epoch}, step {global_step})")
+    barrier()
+    return latest
+
+
+def _write_checkpoint(checkpoint_dir: Path, state: Any, params, mu, nu,
+                      model_config: EtudeDecoderConfig) -> None:
+    """`latest` from whole parameters and moments, each {name: tensor}."""
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
-    names = [name for name, _ in state.model.named_parameters()]
     opt = state.opt_state
     opt_flat = {"count": opt.count.cpu().numpy(), "step": state.step.cpu().numpy(),
                 "skipped": state.skipped.cpu().numpy()}
-    for which, moments in (("mu", opt.mu), ("nu", opt.nu)):
-        tree = decoder_state_to_jax(dict(zip(names, moments)), model_config)
+    for which, moments in (("mu", mu), ("nu", nu)):
+        tree = decoder_state_to_jax(moments, model_config)
         opt_flat.update(flatten_tree(tree, f"{which}/"))
 
     latest = checkpoint_dir / "latest"
@@ -114,8 +177,7 @@ def save_checkpoint(
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    save_params_npz(tmp, decoder_state_to_jax(dict(state.model.named_parameters()),
-                                              model_config))
+    save_params_npz(tmp, decoder_state_to_jax(params, model_config))
     np.savez(tmp / OPT_STATE_FILE, **opt_flat)
     old = checkpoint_dir / ".latest.old"
     if old.exists():
@@ -126,22 +188,14 @@ def save_checkpoint(
     if old.exists():
         shutil.rmtree(old)
 
-    meta = {
-        "epoch": epoch,
-        "global_step": global_step,
-        "model_config": dataclasses.asdict(model_config),
-    }
-    with open(checkpoint_dir / "metadata.json", "w", encoding="utf-8") as f:
-        json.dump(meta, f, indent=2)
-    model_config.to_json_file(checkpoint_dir / "etude_decoder_config.json")
-    if is_save_epoch:
-        epoch_dir = checkpoint_dir / f"epoch_{epoch:04d}"
-        if epoch_dir.exists():
-            shutil.rmtree(epoch_dir)
-        shutil.copytree(latest, epoch_dir)
-        logger.debug(f"checkpoint copied to {epoch_dir}")
-    logger.debug(f"checkpoint saved to {latest} (epoch {epoch}, step {global_step})")
-    return latest
+
+def _shard_of(named: Dict[str, torch.Tensor], names, state: ShardedTrainState) -> torch.Tensor:
+    """This rank's shard of the flat vector holding the whole tensors `named`."""
+    layout = state.layout
+    full = torch.zeros(layout.padded, dtype=torch.float32, device=state.shard.device)
+    torch._foreach_copy_(flat_views(full, layout),
+                         [named[n].to(full.device) for n in names])
+    return full[layout.lo:layout.hi]
 
 
 @torch.no_grad()
@@ -150,16 +204,18 @@ def load_checkpoint(
     state: Any,
     name: str = "latest",
 ) -> Tuple[Any, Dict[str, Any]]:
-    """Restore a checkpoint into `state` (its tensors keep their devices)
-    and return (state, metadata)."""
+    """Restore a checkpoint into `state` (its tensors keep their devices and,
+    for an FSDP state, its layout: each rank takes its shard) and return
+    (state, metadata)."""
     checkpoint_dir = Path(checkpoint_dir).resolve()
     path = checkpoint_dir / name
-    if not path.exists() and name == "latest":
+    if not path.exists() and name == "latest" and is_writer():
         # Recover from a kill inside the save_checkpoint rename window.
         old = checkpoint_dir / ".latest.old"
         if old.exists():
             logger.warn("recovering checkpoint from interrupted save (.latest.old)")
             old.rename(path)
+    barrier()
     if not path.exists():
         raise FileNotFoundError(f"no checkpoint at {path}")
 
@@ -169,12 +225,18 @@ def load_checkpoint(
     moments = unflatten_tree(
         {k: v for k, v in opt_flat.items() if k.startswith(("mu/", "nu/"))})
     names = [n for n, _ in state.model.named_parameters()]
-    for n, p in state.model.named_parameters():
-        p.copy_(params[n])
-    for which, targets in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
-        restored = decoder_state_from_jax(moments[which], config)
-        for n, t in zip(names, targets):
-            t.copy_(restored[n])
+    if isinstance(state, ShardedTrainState):
+        state.shard.copy_(_shard_of(params, names, state))
+        for which, shard in (("mu", state.opt_state.mu[0]), ("nu", state.opt_state.nu[0])):
+            shard.copy_(_shard_of(decoder_state_from_jax(moments[which], config), names,
+                                  state))
+    else:
+        for n, p in state.model.named_parameters():
+            p.copy_(params[n])
+        for which, targets in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+            restored = decoder_state_from_jax(moments[which], config)
+            for n, t in zip(names, targets):
+                t.copy_(restored[n])
     for key, target in (("count", state.opt_state.count), ("step", state.step),
                         ("skipped", state.skipped)):
         target.copy_(torch.from_numpy(opt_flat[key]))

@@ -197,11 +197,16 @@ def test_cli_init_from_starts_from_an_export(tmp_path):
     assert warm.losses[0] < first.losses[0]
 
 
-def test_multi_device_settings_raise(tmp_path):
+def test_multi_device_settings_raise(tmp_path, monkeypatch):
+    """Multi-GPU settings run one rank per card, so where the cards are
+    missing they raise rather than train on fewer (here, a machine that
+    shows one card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     settings = tmp_path / "fsdp.json"
-    settings.write_text(json.dumps({"mesh": {"fsdp": True}}))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        train.main(["--config", str(settings), "--device", "cpu"])
+    settings.write_text(json.dumps({"mesh": {"fsdp": True, "data_parallel": 2}}))
+    with pytest.raises(RuntimeError, match="ask for 2 ranks, one per card, but 1 card"):
+        train.main(["--config", str(settings)])
     settings.write_text(json.dumps({"mesh": {"data_parallel": 4}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--config", str(settings), "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="ask for 4 ranks"):
+        train.main(["--config", str(settings)])
