@@ -94,29 +94,33 @@ Phases, each announced with a flushed line when it starts and ends:
                     `--decode-only` serving the run's own export
  12. multigpu       multi-GPU decoder training and the sweep over cards; it
                     prints the world size it ran at (the number of visible
-                    cards). An NCCL world of one: the mesh step
-                    (`make_train_step(mesh=...)`), replicated and FSDP,
-                    against the plain step for 3 steps of configs/
-                    distill.yaml's batch at the published widths, under
-                    torch's deterministic algorithms (the card's default
-                    backward is not deterministic: two plain runs are
-                    compared and printed), equal bit for bit in bf16, no
-                    host sync after the first step (control: one row's
-                    labels shifted); an FSDP checkpoint restored onto other
-                    weights resumes bit for bit (control: moments zeroed);
-                    `dryrun_multichip`
+                    cards). An NCCL world of one: the FSDP state
+                    (`init_sharded_state(fsdp=True)`; its step gathers the
+                    parameters and reduce-scatters the gradients over the
+                    group) against the plain step without a group, for 3
+                    steps of configs/distill.yaml's batch at the published
+                    widths, under torch's deterministic algorithms (the
+                    card's default backward is not), equal bit for bit in
+                    bf16, no host sync after the first step (control: one
+                    row's labels shifted); an FSDP checkpoint restored onto
+                    other weights resumes bit for bit (control: moments
+                    zeroed); `dryrun_multichip`
                     over every card; the 27-combo sweep over 4 corpus bars
                     (64-token cap) on one card and spread over the cards
                     (two threads on card 0 when there is one), greedy tokens
                     equal up to near-ties (counted), K1 launches = S = 1
-                    chunks x layers. With two or more cards, also
-                    `infer --decode-only --sweep` (the engine gets every
-                    card; 27 MIDI files), the
-                    training CLI with `mesh.data_parallel` = the card count
-                    against one card (10 steps, losses within the card-vs-CPU
-                    step limit), and `tools/mesh_bench.py` at 1, 2 and all
-                    ranks (and FSDP at all): warm step, tokens/s, the
-                    collectives' share of device time, peak memory per card
+                    chunks x layers; `infer --decode-only --sweep` batched
+                    on one card (the engine gets no devices; 27 MIDI
+                    files). With two or more cards, also the mesh step
+                    over every card against one card for 8 steps of real
+                    learning (losses and gradient norms within measured
+                    limits; control: the gradients' all-reduce skipped),
+                    the training CLI with `mesh.data_parallel` = the card
+                    count against one card (10 steps, losses within the
+                    card-vs-CPU step limit), and `tools/mesh_bench.py` at
+                    1, 2 and all ranks (and FSDP at all; its losses held
+                    to one rank's): warm step, tokens/s, the collectives'
+                    share of device time, peak memory per card
  13. aux_train      the backward kernel K2b against autograd of K2's plain
                     version at the training shape (B = 40, T = 512, all 9
                     dilations) and the serving shape (B = 5, T = 12,288,
@@ -239,11 +243,11 @@ BYPASS_DB_ATOL = 1e-3
 QUANT_LOGIT_ATOL = 3e-2
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
-# The serving phase decodes the first GREEDY_BARS of its 24 corpus bars
-# greedily (24 until PR 14; the cache stays C = 1217), then samples over the
-# first SAMPLED_BARS: enough to check both, and it keeps the whole run
-# inside its time limit on a slow host (1,108 s with 24 in PR 14).
-GREEDY_BARS, SAMPLED_BARS = 16, 8
+# The serving phase decodes its 24 corpus bars greedily (GREEDY_BARS; the
+# cache is C = 1217), then samples over the first SAMPLED_BARS: enough to
+# check both, and it keeps the whole run inside its time limit on a slow
+# host.
+GREEDY_BARS, SAMPLED_BARS = 24, 8
 ORIGIN_SR, ALIGN_SR = 44100, 22050
 # The prepare phase's covers: the origin's notes shifted and swung by
 # ±WARP_SECONDS over WARP_PERIOD, which keeps the WP-Std of a grid through
@@ -338,6 +342,15 @@ REMAP_TOKENS = 256
 # sweep must fall under (tests/test_torch_generate_stream.py TIE_MARGIN).
 MESH_STEPS, SWEEP_BARS, SWEEP_TOKENS, DP_CLI_STEPS = 3, 4, 64, 10
 TIE_MARGIN = 1.75e-2
+# The mesh step over N cards against one card: MESH_LEARN_STEPS steps of the
+# distill batch from seed 0's weights at rate 2e-4 after one warmup step
+# (the loss falls 4.69 -> 3.93), the largest relative gap of the per-step
+# losses and gradient norms. Measured on four H100s: two one-card runs
+# 1.11e-5 and 1.16e-4 apart (the backward is not deterministic), 4 cards
+# against one 2.23e-5 and 3.02e-4; with the gradients' all-reduce skipped
+# 0.014 and 0.877. The limits are about ten times the measured gaps (and
+# hold mesh_bench's losses too: within 3e-5 across 1, 2 and 4 ranks).
+MESH_LEARN_STEPS, MESH_LOSS_RTOL, MESH_NORM_RTOL = 8, 2e-4, 3e-3
 # `entry()`: the default decoder's logits (std about 0.45, largest 2.1,
 # under seed 0's weights), card bf16 against CPU f32, as LOGIT_ATOL and
 # LOGIT_RTOL hold the serving logits. Measured on an H100: 0.0234 (inside
@@ -3234,15 +3247,15 @@ def deterministic():
 
 
 def mesh_parity(root: Path, config, hosts):
-    """An NCCL world of one: the mesh step, replicated and FSDP, against the
-    plain step for MESH_STEPS steps from the same weights and batches, bit
-    for bit in bf16 (control: one row's labels shifted); then an FSDP
-    checkpoint saved and restored onto a state from other weights, whose
-    next two steps equal the direct state's in every bit (control: the
-    moments zeroed in a copy). The card's backward is not deterministic by
-    default (two plain runs are compared first, and the result printed), so
-    the checks run under torch's deterministic algorithms. Leaves no
-    process group."""
+    """An NCCL world of one: the FSDP state (its parameters gathered and its
+    gradients reduce-scattered over the group, its norm from per-parameter
+    squares) against the plain step without a group, for MESH_STEPS steps
+    from the same weights and batches, bit for bit in bf16 (control: one
+    row's labels shifted); then an FSDP checkpoint saved and restored onto
+    a state from other weights, whose next two steps equal the direct
+    state's in every bit (control: the moments zeroed in a copy). The
+    card's backward is not deterministic by default, so the checks run
+    under torch's deterministic algorithms. Leaves no process group."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3271,23 +3284,17 @@ def mesh_parity(root: Path, config, hosts):
                 state, step = fresh_training(config, "cuda", torch.bfloat16, warmup=1)
                 data = [{k: v for k, v in b.items() if k != "n_labels"} for b in data]
             else:
-                state, step = mesh_training(config, mesh, kind == "fsdp")
+                state, step = mesh_training(config, mesh, fsdp=True)
             losses = [step(state, data[0])["loss"]]
-            # The mesh step reads nothing back to the host: after the first
-            # step a synchronization raises, as under the CLI's --strict-sync.
-            torch.cuda.set_sync_debug_mode("error" if kind != "plain" else "default")
+            # The step reads nothing back to the host: after the first step
+            # a synchronization raises, as under the CLI's --strict-sync.
+            torch.cuda.set_sync_debug_mode("error")
             try:
                 losses += [step(state, b)["loss"] for b in data[1:MESH_STEPS]]
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             return [float(x) for x in losses], whole_state(state), state, step
 
-        plain = run("plain", batches())
-        again = run("plain", batches())
-        say(f"  plain step twice, torch's default algorithms: losses {plain[0]}, "
-            f"{again[0]}; parameters and moments equal bit for bit: "
-            f"{all(torch.equal(a, b) for a, b in zip(plain[1], again[1]))}")
-        del again
         with deterministic() as caught:
             mesh_checks(root, config, mesh, batches, run)
         ops = sorted({str(w.message).split(" does not have")[0][:80] for w in caught})
@@ -3307,20 +3314,20 @@ def mesh_checks(root: Path, config, mesh, batches, run):
 
     plain = run("plain", batches())
     rows = {}
-    for kind, data in (("replicated", batches()), ("fsdp", batches()),
+    for kind, data in (("FSDP", batches()),
                        ("control, one row's labels shifted", batches(shift_row=0))):
-        losses, tensors, state, step = run("fsdp" if kind == "fsdp" else "dp", data)
+        losses, tensors, state, step = run("fsdp", data)
         same = losses == plain[0] and all(torch.equal(a, b) for a, b in zip(tensors, plain[1]))
         rows[kind] = same
         say(f"  mesh step ({kind}), {MESH_STEPS} steps of 32 x 1024 in bf16: losses "
             f"{losses} vs plain {plain[0]}; losses, parameters and moments equal "
             f"bit for bit: {same}")
-        if kind == "fsdp":
+        if kind == "FSDP":
             fsdp_state, fsdp_step = state, step
         else:
             del state, step
-    if not rows["replicated"] or not rows["fsdp"]:
-        raise RuntimeError("the mesh step at world 1 differs from the plain step")
+    if not rows["FSDP"]:
+        raise RuntimeError("the FSDP step at world 1 differs from the plain step")
     if rows["control, one row's labels shifted"]:
         raise RuntimeError("the mesh step check missed its control (labels shifted)")
     del plain
@@ -3454,6 +3461,93 @@ def split_sweep(config, vocab, devices) -> int:
     return total
 
 
+def learning_run(config, mesh, hosts_path: str) -> dict:
+    """MESH_LEARN_STEPS steps of the mesh step (`mesh_training`, replicated)
+    on the host batches saved at `hosts_path`, this rank's rows of each;
+    the per-step losses and gradient norms, read back at the end."""
+    import numpy as np
+    import torch
+    from etude_tpu_torch.parallel.mesh import shard_batch
+    from etude_tpu_torch.parallel.train_step import reshape_for_accum
+
+    with np.load(hosts_path) as f:
+        hosts = [{k.split("/", 1)[1]: f[k] for k in f.files if k.startswith(f"b{i}/")}
+                 for i in range(MESH_LEARN_STEPS)]
+    state, step = mesh_training(config, mesh, fsdp=False)
+    metrics = [step(state, {k: torch.from_numpy(v).to(mesh.device)
+                            for k, v in shard_batch(reshape_for_accum(h, 4), mesh).items()})
+               for h in hosts]
+    return {key: [float(m[key]) for m in metrics] for key in ("loss", "grad_norm")}
+
+
+def _mesh_learning_rank(rank: int, world: int, address: str, out: str, fields: dict,
+                        hosts_path: str, control: bool) -> None:
+    """One rank of `mesh_learning`; rank 0 writes `learning_run`'s record to
+    `out`. The control skips the gradients' all-reduce (every reduction
+    but the two-element sum of the loss and accuracy)."""
+    import torch.distributed as dist
+    from etude_tpu_torch.models.decoder import EtudeDecoderConfig
+    from etude_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    initialize_multihost(address, world, rank, device="cuda")
+    try:
+        if control:
+            all_reduce = dist.all_reduce
+            dist.all_reduce = (lambda t, *a, **kw:
+                               all_reduce(t, *a, **kw) if t.numel() <= 2 else None)
+        record = learning_run(EtudeDecoderConfig(**fields), make_mesh(data_parallel=world),
+                              hosts_path)
+        if rank == 0:
+            Path(out).write_text(json.dumps(record))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_learning(root: Path, config, hosts, n: int) -> None:
+    """The mesh step over n cards (one NCCL rank each) against one card,
+    MESH_LEARN_STEPS steps of real learning from the same weights and
+    batches: every step's loss within MESH_LOSS_RTOL and gradient norm
+    within MESH_NORM_RTOL of one card's (two one-card runs printed for the
+    card's own spread); the control, the gradients' all-reduce skipped,
+    must leave one of the limits."""
+    import dataclasses
+
+    import numpy as np
+    from etude_tpu_torch.parallel.mesh import make_mesh, spawn_ranks
+
+    path = root / "learning_hosts.npz"
+    np.savez(path, **{f"b{i}/{k}": v for i, h in enumerate(hosts[:MESH_LEARN_STEPS])
+                      for k, v in h.items()})
+
+    def gaps(a, b):
+        return {k: max(abs(x / y - 1) for x, y in zip(a[k], b[k], strict=True)) for k in a}
+
+    one = [learning_run(config, make_mesh(data_parallel=1), str(path)) for _ in range(2)]
+    fields = dataclasses.asdict(config)
+    t = time.perf_counter()
+    spread = spawn_ranks(_mesh_learning_rank, n, fields, str(path), False)
+    spread_s = time.perf_counter() - t
+    control = spawn_ranks(_mesh_learning_rank, n, fields, str(path), True)
+    rows = {"one card again": gaps(one[1], one[0]), f"{n} cards": gaps(spread, one[0]),
+            "control, all-reduce skipped": gaps(control, one[0])}
+    say(f"  mesh step over {n} cards vs one, {MESH_LEARN_STEPS} steps of 32 x 1024 at "
+        f"rate 2e-4 ({spread_s:.2f} s with the ranks' start): one card's losses "
+        f"{[round(x, 6) for x in one[0]['loss']]}, gradient norms "
+        f"{[round(x, 6) for x in one[0]['grad_norm']]}; {n} cards' losses "
+        f"{[round(x, 6) for x in spread['loss']]}")
+    for name, gap in rows.items():
+        say(f"    {name}: largest relative gap, losses {gap['loss']:.3g} (limit "
+            f"{MESH_LOSS_RTOL}), gradient norms {gap['grad_norm']:.3g} (limit {MESH_NORM_RTOL})")
+    if not one[0]["loss"][-1] < one[0]["loss"][0]:
+        raise RuntimeError("the learning check's loss did not fall")
+    gap = rows[f"{n} cards"]
+    if gap["loss"] > MESH_LOSS_RTOL or gap["grad_norm"] > MESH_NORM_RTOL:
+        raise RuntimeError(f"the mesh step over {n} cards left one card's run ({gap})")
+    gap = rows["control, all-reduce skipped"]
+    if gap["loss"] <= MESH_LOSS_RTOL and gap["grad_norm"] <= MESH_NORM_RTOL:
+        raise RuntimeError("the mesh learning check missed its control (all-reduce skipped)")
+
+
 def dp_cli_parity(root: Path, n: int) -> None:
     """The training CLI over n cards (`mesh.data_parallel` = n, one rank per
     card) against one card, DP_CLI_STEPS steps of the same global batch at
@@ -3483,10 +3577,11 @@ def dp_cli_parity(root: Path, n: int) -> None:
         raise RuntimeError(f"the data-parallel CLI left the one-card losses ({gap:.3g})")
 
 
-def sweep_cli(root: Path, n: int) -> int:
+def sweep_cli(root: Path) -> int:
     """`infer --decode-only --sweep` on a synthetic 8-bar work dir at full
-    decoder width (random weights, 32-token bars): the streaming engine
-    gets every card, 27 MIDI files parse. Returns the K1 launches."""
+    decoder width (random weights, 32-token bars): batched on one card
+    (the streaming engine gets no devices), 27 MIDI files parse. Returns
+    the K1 launches."""
     from etude_tpu_torch import infer
     from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
     from etude_tpu_torch.ops.decode_attention import decode_attention
@@ -3523,10 +3618,9 @@ def sweep_cli(root: Path, n: int) -> int:
     for m in mids:
         read_midi_notes(m)
     say(f"  infer --decode-only --sweep: rc {rc}, {len(mids)} MIDI files in {wall:.2f} s, "
-        f"devices passed {[str(d) for d in seen[0]] if seen and seen[0] else seen}, "
-        f"K1 launches {launches}")
-    if rc != 0 or len(mids) != 27 or not seen or len(seen[0] or []) != n or launches == 0:
-        raise RuntimeError("the CLI sweep did not run over every card")
+        f"devices passed {seen}, K1 launches {launches}")
+    if rc != 0 or len(mids) != 27 or seen != [None] or launches == 0:
+        raise RuntimeError("the CLI sweep did not run batched on one card")
     return launches
 
 
@@ -3540,8 +3634,9 @@ def multigpu_phase(root: Path, config, vocab, serve_config, serve_vocab) -> int:
     n = torch.cuda.device_count()
     say(f"  multigpu phase at world size {n}: {n} card(s) visible"
         + ("" if n > 1 else "; the checks over several cards need two or more"))
-    _, dataset, _ = corpus_subset(root / "subset", MESH_STEPS + 2, 32)
-    hosts = list(itertools.islice(dataset.batches(32, shuffle=True, seed=1234), MESH_STEPS + 2))
+    count = max(MESH_STEPS + 2, MESH_LEARN_STEPS if n > 1 else 0)
+    _, dataset, _ = corpus_subset(root / "subset", count, 32)
+    hosts = list(itertools.islice(dataset.batches(32, shuffle=True, seed=1234), count))
     mesh_parity(root, config, hosts)
     t = time.perf_counter()
     dryrun_multichip(n)
@@ -3549,19 +3644,28 @@ def multigpu_phase(root: Path, config, vocab, serve_config, serve_vocab) -> int:
     devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
                else [torch.device("cuda", 0)] * 2)
     launches = split_sweep(serve_config, serve_vocab, devices)
+    launches += sweep_cli(root / "sweep_cli")
     if n > 1:
-        launches += sweep_cli(root / "sweep_cli", n)
+        mesh_learning(root, config, hosts, n)
         dp_cli_parity(root, n)
         from etude_tpu_torch.tools import mesh_bench
 
+        runs = {}
         for ranks, fsdp in sorted({(1, False), (2, False), (n, False), (n, True)}):
-            r = mesh_bench.run(ranks, fsdp=fsdp)
+            runs[ranks, fsdp] = r = mesh_bench.run(ranks, fsdp=fsdp)
             say(f"  mesh_bench {ranks} rank(s){' FSDP' if fsdp else ''}: warm step median "
                 f"{r['step_ms_median']:.2f} ms (min {r['step_ms_min']:.2f}, max "
                 f"{r['step_ms_max']:.2f}), {r['tokens_per_s']:,.0f} positions/s; collectives' "
                 f"share of device time {[round(x, 4) for x in r['collective_share']]}; peak "
                 f"memory per card {[round(p['peak_gib'], 3) for p in r['per_rank']]} GiB")
             say("  mesh_bench " + json.dumps(r))
+        one = runs[1, False]["losses"]
+        gap = max(abs(a / b - 1) for r in runs.values() for a, b in zip(r["losses"], one,
+                                                                        strict=True))
+        say(f"  mesh_bench losses against one rank's: largest relative gap {gap:.3g} "
+            f"(limit {MESH_LOSS_RTOL})")
+        if gap > MESH_LOSS_RTOL:
+            raise RuntimeError(f"mesh_bench's losses left one rank's ({gap:.3g})")
     say(f"  multigpu phase ran at world size {n}")
     return launches
 

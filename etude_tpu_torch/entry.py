@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import json
 import math
-import tempfile
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
@@ -29,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .models.decoder import ATTRIBUTE_ORDER, EtudeDecoderConfig
+from .parallel.mesh import spawn_ranks
 from .utils.device import compute_dtype_for, resolve_device
 from .weights import decoder_from_jax, init_decoder_params_np
 
@@ -82,7 +82,7 @@ def entry(device="cuda") -> Tuple[Callable, tuple]:
     return fn, example_args
 
 
-def _dryrun_rank(rank: int, n: int, address: str, device: str, out: str) -> None:
+def _dryrun_rank(rank: int, n: int, address: str, out: str, device: str) -> None:
     """Checks 1-3 of `dryrun_multichip` on one rank of n; rank 0 writes the
     losses to `out` as JSON."""
     from .parallel.mesh import initialize_multihost, make_mesh, shard_batch
@@ -165,14 +165,7 @@ def dryrun_multichip(n: int, device="cuda") -> Dict[str, float]:
     if device.type == "cuda" and torch.cuda.device_count() < n:
         raise RuntimeError(f"dryrun_multichip({n}) needs {n} cards, "
                            f"{torch.cuda.device_count()} visible")
-    with tempfile.TemporaryDirectory(prefix="etude_dryrun_") as tmp:
-        out = Path(tmp) / "dryrun.json"
-        ranks = torch.multiprocessing.start_processes(
-            _dryrun_rank, args=(n, f"file://{tmp}/store", device.type, str(out)),
-            nprocs=n, join=False, start_method="spawn")
-        while not ranks.join():
-            pass
-        result = json.loads(out.read_text())
+    result = spawn_ranks(_dryrun_rank, n, device.type)
 
     config = EtudeDecoderConfig(**{**DRYRUN_CONFIG, "num_attention_heads": 1})
     devices = ([torch.device("cuda", i) for i in range(n)] if device.type == "cuda"

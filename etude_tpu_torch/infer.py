@@ -13,7 +13,10 @@ contract, tokenizes the condition, runs the generation engine and writes
 `<infer_output_dir>/<name>.mid` with the port's own tokenizer and MIDI
 writer. `--decode-only` runs Decode alone on the work dir's intermediates;
 `--sweep` decodes all 27 polyphony/rhythm/sustain combinations as 27
-streams on one card. `--engine stream` (the default) is the persistent-KV
+streams batched on one card (the JAX CLI shards them over every device,
+:212-219; `generate_batch(devices=...)` can spread them over cards, but
+while a step is eager launches from one interpreter the spread is slower
+than one card's batch). `--engine stream` (the default) is the persistent-KV
 engine; `--engine rebuild` prefills every bar's prompt again (the
 reference's exact semantics, :174-196). `--attrs-prior` conditions each bar
 on the bins that the predictor in `<paths.checkpoints_dir>/attr_prior`
@@ -209,19 +212,11 @@ class InferencePipeline:
                 for p in range(3) for r in range(3) for s in range(3)
             ]
             logger.step(f"Batched sweep over {len(combos)} attribute combos")
-            # Several cards: the streaming engine spreads the combos over all
-            # of them (JAX infer.py:212-219 shards them over a mesh).
-            devices = None
-            if (self.device.type == "cuda" and torch.cuda.device_count() > 1
-                    and self.engine_kind == "stream"):
-                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                logger.info(f"sweep spread over {len(devices)} cards")
             streams = engine.generate_batch(
                 model, [all_x_bars] * len(combos),
                 [[c] * len(all_x_bars) for c in combos],
                 temperature=d.temperature, top_p=d.top_p,
                 max_output_tokens=d.max_output_tokens, seed=seed, progress=True,
-                **({"devices": devices} if devices else {}),
             )
             for combo, bars in zip(combos, streams):
                 name = (f"{final_filename}_p{combo['polyphony_bin']}"

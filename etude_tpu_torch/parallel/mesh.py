@@ -25,9 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import math
 import os
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import tempfile
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,14 +64,15 @@ class Mesh:
 
 
 def _group_device(device: Optional[Union[str, torch.device]]) -> torch.device:
-    """`device` (a bare `cuda` is the current card), or the group's kind."""
+    """`device` (a bare `cuda` is the current card), or the group's kind;
+    without a group, the current card."""
     if device is not None:
         return with_index(device)
     if dist.is_initialized():
         if dist.get_backend() == "nccl":
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cpu")
-    return resolve_device("cuda")
+    return with_index(resolve_device("cuda"))
 
 
 def make_mesh(
@@ -262,3 +266,19 @@ def initialize_multihost(
     logger.info(f"process group: rank {dist.get_rank()} of {dist.get_world_size()} "
                 f"({dist.get_backend()})")
     return dist.get_world_size() > 1
+
+
+def spawn_ranks(fn: Callable, world: int, *args) -> Optional[Any]:
+    """Run `fn(rank, world, address, out, *args)` in `world` spawned
+    processes, which rendezvous at `address` (a file store in a temporary
+    directory); rank 0 may write a JSON record to the path `out`. Returns
+    that record, or None when no rank wrote one. A rank that fails ends the
+    others and raises here."""
+    with tempfile.TemporaryDirectory(prefix="etude_ranks_") as tmp:
+        out = Path(tmp) / "out.json"
+        ranks = torch.multiprocessing.start_processes(
+            fn, args=(world, f"file://{tmp}/store", str(out), *args), nprocs=world,
+            join=False, start_method="spawn")
+        while not ranks.join():
+            pass
+        return json.loads(out.read_text()) if out.exists() else None

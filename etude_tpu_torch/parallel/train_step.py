@@ -17,7 +17,9 @@ same AdamW with its own schedule and b2, one batch, no skip.
 
 Over a mesh (parallel/mesh.py; JAX `make_train_step(mesh=...)` :118 and
 `init_sharded_state` :79), every rank runs the same step on its rows of each
-micro-batch, and the step calls the collectives that XLA derives in JAX:
+micro-batch, and the step calls the collectives that XLA derives in JAX (one
+step function serves both: without a process group its collectives are
+no-ops):
 
 - The loss is JAX's token-weighted mean over the whole micro-batch: each
   rank divides its token-loss sum by the micro-batch's label count over
@@ -252,37 +254,70 @@ def make_train_step(config: EtudeDecoderConfig, tx: AdamW,
     grad_norm and the label count n_tokens); nothing in it reads a value
     back to the host.
 
-    With a mesh, every rank of its data axis calls the step together, with
-    its rows of each micro-batch and their `n_labels` (`mesh.shard_batch`),
-    on a state from `init_sharded_state`; the metrics are the whole
-    batch's, the same on every rank."""
-    if mesh is not None:
-        return _mesh_train_step(tx, compute_dtype, remat, mesh)
+    With a mesh whose group has ranks to reduce over, every rank of its data
+    axis calls the step together, with its rows of each micro-batch and
+    their `n_labels` (`mesh.shard_batch`), on a state from
+    `init_sharded_state`; the metrics are the whole batch's, the same on
+    every rank. Without a group (or a mesh) the reductions are no-ops, and a
+    batch without `n_labels` takes each micro-batch's own label count."""
+    group = None if mesh is None else mesh.group
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
+        if group is not None:
+            dist.all_reduce(t, op=op, group=group)
+
+    def step(state, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        sharded = isinstance(state, ShardedTrainState)
+        n_labels = batch.get("n_labels")
+        if group is not None and n_labels is None:
+            raise ValueError("a step over a process group needs each micro-batch's "
+                             "n_labels (mesh.shard_batch)")
         params = state.params()
         for p in params:
             p.grad = None
         accum = batch["input_ids"].shape[0]
         loss_sum = acc_sum = n_tokens = 0
-        for i in range(accum):
-            loss, metrics = loss_fn(state.model, {k: v[i] for k, v in batch.items()},
-                                    compute_dtype, remat)
-            loss.backward()   # sums the micro-batch gradients in .grad
-            loss_sum = loss_sum + loss.detach()
-            acc_sum = acc_sum + metrics["accuracy"]
-            n_tokens = n_tokens + metrics["n_tokens"]
-        grads = [p.grad for p in params]
+        with state.gathered() if sharded else contextlib.nullcontext():
+            for i in range(accum):
+                micro = {k: v[i] for k, v in batch.items() if k != "n_labels"}
+                loss, metrics = loss_fn(state.model, micro, compute_dtype, remat,
+                                        n_labels=None if n_labels is None else n_labels[i])
+                loss.backward()   # sums the micro-batch gradients in .grad
+                loss_sum = loss_sum + loss.detach()
+                acc_sum = acc_sum + metrics["accuracy"]
+                n_tokens = n_tokens + metrics["n_tokens"]
+        if sharded or group is not None:   # one collective of the flat gradients
+            layout = state.layout if sharded else flat_layout(params)
+            flat = _flat_grads(params, layout)
+            for p in params:
+                p.grad = None
+            if sharded:
+                grads, targets = [_reduce_scatter(flat, state)], [state.shard]
+            else:
+                reduce(flat)
+                grads, targets = flat_views(flat, layout), params
+            del flat
+        else:
+            grads, targets = [p.grad for p in params], params
         torch._foreach_div_(grads, accum)
         finite = torch.stack([g.isfinite().all() for g in grads]).all()
-        grad_norm = tx.update(grads, state.opt_state, params, finite)
+        norm = None
+        if sharded:   # a shard's test and norm are this rank's part of them
+            finite = finite.int()
+            reduce(finite, dist.ReduceOp.MIN)
+            finite = finite.bool()
+            norm = _sharded_norm(grads[0], state, reduce)
+        grad_norm = tx.update(grads, state.opt_state, targets, finite, norm=norm)
         state.step += 1
         state.skipped += (~finite).int()
         for p in params:
             p.grad = None
+        means = torch.stack([loss_sum, acc_sum])
+        reduce(means)
+        means = means / accum
         return {
-            "loss": loss_sum / accum,
-            "accuracy": acc_sum / accum,
+            "loss": means[0],
+            "accuracy": means[1],
             "grads_finite": finite.int(),
             "grad_norm": grad_norm,
             "n_tokens": n_tokens,
@@ -394,90 +429,30 @@ def _flat_grads(params: List[torch.Tensor], layout: FlatShard) -> torch.Tensor:
     return flat
 
 
-def _mesh_train_step(tx: AdamW, compute_dtype: torch.dtype, remat: bool, mesh: Mesh):
-    group = mesh.group
+def _reduce_scatter(flat: torch.Tensor, state: ShardedTrainState) -> torch.Tensor:
+    """This rank's shard of `flat` summed over the data axis (`flat` itself
+    without a group)."""
+    group = state.mesh.group
+    if group is None:
+        return flat
+    grad = flat.new_empty(state.layout.shard)
+    # torch 2.13 renames reduce_scatter_tensor (the card's 2.11 has it).
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(grad, flat, group=group)
+    return grad
 
-    def reduce(t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
-        if group is not None:
-            dist.all_reduce(t, op=op, group=group)
 
-    def backward(state, batch, layout):
-        """Each micro-batch's loss sum over the global label count,
-        backpropagated; returns the summed gradients as one flat vector and
-        the whole batch's (mean loss, mean accuracy)."""
-        params = state.params()
-        for p in params:
-            p.grad = None
-        accum = batch["input_ids"].shape[0]
-        loss_sum = acc_sum = 0
-        for i in range(accum):
-            micro = {k: v[i] for k, v in batch.items() if k != "n_labels"}
-            loss, metrics = loss_fn(state.model, micro, compute_dtype, remat,
-                                    n_labels=batch["n_labels"][i])
-            loss.backward()   # sums the micro-batch gradients in .grad
-            loss_sum = loss_sum + loss.detach()
-            acc_sum = acc_sum + metrics["accuracy"]
-        flat = _flat_grads(params, layout)
-        for p in params:
-            p.grad = None
-        means = torch.stack([loss_sum, acc_sum])
-        reduce(means)
-        return flat, means / accum
-
-    def replicated_update(state: TrainState, batch):
-        params = state.params()
-        layout = flat_layout(params)
-        flat, means = backward(state, batch, layout)
-        reduce(flat)
-        grads = flat_views(flat, layout)
-        torch._foreach_div_(grads, batch["input_ids"].shape[0])
-        finite = torch.stack([g.isfinite().all() for g in grads]).all()
-        return means, finite, tx.update(grads, state.opt_state, params, finite)
-
-    def sharded_update(state: ShardedTrainState, batch):
-        layout = state.layout
-        with state.gathered():
-            flat, means = backward(state, batch, layout)
-        if group is None:
-            grad = flat
-        else:
-            grad = flat.new_empty(layout.shard)
-            getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
-                grad, flat, group=group)
-        del flat
-        torch._foreach_div_([grad], batch["input_ids"].shape[0])
-        finite = grad.isfinite().all().int()
-        reduce(finite, dist.ReduceOp.MIN)
-        finite = finite.bool()
-        # The global norm as the replicated step computes it: the norm of the
-        # per-parameter norms, each from its pieces' squares summed over ranks
-        # (in f64, so a parameter held whole comes back to its own f32 norm).
-        pieces = [grad[a:b] for _, a, b in layout.pieces()]
-        squares = torch.zeros(len(layout.shapes), dtype=torch.float64, device=grad.device)
-        if pieces:
-            squares.index_copy_(0, state.piece_index,
-                                torch.stack(torch._foreach_norm(pieces)).double() ** 2)
-        reduce(squares)
-        norm = torch.linalg.vector_norm(squares.sqrt().float())
-        return means, finite, tx.update([grad], state.opt_state, [state.shard], finite,
-                                        norm=norm)
-
-    def step(state, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        if isinstance(state, ShardedTrainState):
-            means, finite, grad_norm = sharded_update(state, batch)
-        else:
-            means, finite, grad_norm = replicated_update(state, batch)
-        state.step += 1
-        state.skipped += (~finite).int()
-        return {
-            "loss": means[0],
-            "accuracy": means[1],
-            "grads_finite": finite.int(),
-            "grad_norm": grad_norm,
-            "n_tokens": batch["n_labels"].sum(),
-        }
-
-    return step
+def _sharded_norm(grad: torch.Tensor, state: ShardedTrainState, reduce) -> torch.Tensor:
+    """The global norm as the replicated step computes it: the norm of the
+    per-parameter norms, each from its pieces' squares summed over ranks (in
+    f64, so a parameter held whole comes back to its own f32 norm)."""
+    layout = state.layout
+    pieces = [grad[a:b] for _, a, b in layout.pieces()]
+    squares = torch.zeros(len(layout.shapes), dtype=torch.float64, device=grad.device)
+    if pieces:
+        squares.index_copy_(0, state.piece_index,
+                            torch.stack(torch._foreach_norm(pieces)).double() ** 2)
+    reduce(squares)
+    return torch.linalg.vector_norm(squares.sqrt().float())
 
 
 def reshape_for_accum(batch: Dict[str, np.ndarray],

@@ -21,7 +21,6 @@ import argparse
 import itertools
 import json
 import statistics
-import tempfile
 import time
 from pathlib import Path
 
@@ -31,7 +30,7 @@ import torch.distributed as dist
 from ..data.dataset import EtudeDataset
 from ..data.vocab import Vocab
 from ..models.decoder import EtudeDecoderConfig
-from ..parallel.mesh import initialize_multihost, make_mesh, shard_batch
+from ..parallel.mesh import initialize_multihost, make_mesh, shard_batch, spawn_ranks
 from ..parallel.train_step import (
     init_sharded_state, make_optimizer, make_train_step, reshape_for_accum,
 )
@@ -42,8 +41,8 @@ ROWS, ACCUM, T = 8, 4, 1024
 WARMUP, PROFILED = 2, 3
 
 
-def _rank(rank: int, world: int, store: str, fsdp: bool, steps: int, out: str) -> None:
-    initialize_multihost(f"file://{store}", world, rank, device="cuda")
+def _rank(rank: int, world: int, address: str, out: str, fsdp: bool, steps: int) -> None:
+    initialize_multihost(address, world, rank, device="cuda")
     try:
         mesh = make_mesh(data_parallel=world)
         vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
@@ -105,15 +104,8 @@ def run(ranks: int, fsdp: bool = False, steps: int = 10) -> dict:
     if torch.cuda.device_count() < ranks:
         raise RuntimeError(f"{ranks} ranks need {ranks} cards, "
                            f"{torch.cuda.device_count()} visible")
-    with tempfile.TemporaryDirectory(prefix="etude_mesh_bench_") as tmp:
-        out = Path(tmp) / "out.json"
-        t = time.perf_counter()
-        procs = torch.multiprocessing.start_processes(
-            _rank, args=(ranks, f"{tmp}/store", fsdp, steps, str(out)), nprocs=ranks,
-            join=False, start_method="spawn")
-        while not procs.join():
-            pass
-        record = json.loads(out.read_text())
+    t = time.perf_counter()
+    record = spawn_ranks(_rank, ranks, fsdp, steps)
     record["wall_s"] = time.perf_counter() - t
     return record
 

@@ -34,7 +34,6 @@ import dataclasses
 import json
 import statistics
 import sys
-import tempfile
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -47,7 +46,7 @@ from .config import load_config
 from .data.dataset import EtudeDataset
 from .data.vocab import Vocab
 from .models.decoder import EtudeDecoderConfig, param_count
-from .parallel.mesh import initialize_multihost, make_mesh
+from .parallel.mesh import initialize_multihost, make_mesh, spawn_ranks
 from .parallel.prefetch import prefetch_to_device, prefetch_to_mesh
 from .parallel.train_step import (
     full_params, init_sharded_state, init_train_state, make_optimizer, make_train_step,
@@ -370,17 +369,17 @@ def run(argv=None) -> Optional[TrainRun]:
                     chunks=counts["chunks"], rollout_chunks=counts["rollout"])
 
 
-def _rank_main(rank: int, world: int, address: str, device: str, argv: List[str],
-               record: str) -> None:
+def _rank_main(rank: int, world: int, address: str, out: str, device: str,
+               argv: List[str]) -> None:
     """One rank of `_spawn_ranks`: join the group, run the CLI, and on rank 0
-    write the TrainRun to `record` as JSON."""
+    write the TrainRun to `out` as JSON."""
     if device == "cpu":   # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     initialize_multihost(address, world, rank, device=device)
     try:
         result = run(argv)
         if rank == 0 and result is not None:
-            Path(record).write_text(json.dumps(
+            Path(out).write_text(json.dumps(
                 {**dataclasses.asdict(result), "ckpt_dir": str(result.ckpt_dir)}))
     finally:
         dist.destroy_process_group()
@@ -388,23 +387,16 @@ def _rank_main(rank: int, world: int, address: str, device: str, argv: List[str]
 
 def _spawn_ranks(argv, world: int, device: torch.device) -> Optional[TrainRun]:
     """Run the CLI in `world` processes, rank r on card r (gloo processes on
-    the CPU), rendezvousing through a file store, and return rank 0's
-    TrainRun. A rank that fails ends the others and raises here."""
+    the CPU), and return rank 0's TrainRun. A rank that fails ends the
+    others and raises here."""
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise RuntimeError(f"the mesh settings ask for {world} ranks, one per card, but "
                            f"{torch.cuda.device_count()} card(s) are visible")
     argv = list(sys.argv[1:] if argv is None else argv)
     logger.info(f"starting {world} ranks ({'NCCL' if device.type == 'cuda' else 'gloo'})")
-    with tempfile.TemporaryDirectory(prefix="etude_train_") as tmp:
-        record = Path(tmp) / "run.json"
-        ranks = torch.multiprocessing.start_processes(
-            _rank_main, args=(world, f"file://{tmp}/store", device.type, argv, str(record)),
-            nprocs=world, join=False, start_method="spawn")
-        while not ranks.join():
-            pass
-        if not record.exists():
-            return None
-        fields = json.loads(record.read_text())
+    fields = spawn_ranks(_rank_main, world, device.type, argv)
+    if fields is None:
+        return None
     return TrainRun(**{**fields, "ckpt_dir": Path(fields["ckpt_dir"])})
 
 

@@ -62,6 +62,25 @@ def test_sweep_writes_27_files(decode_only_env):  # noqa: F811
     assert len(list((tmp_path / "outputs" / "infer").glob("sw_p*r*s*.mid"))) == 27
 
 
+def test_sweep_batches_on_one_device(decode_only_env, monkeypatch):  # noqa: F811
+    """The sweep's 27 streams go to the engine as one batch, with no
+    devices to spread over (the spread is slower while a step is eager
+    launches from one interpreter)."""
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+
+    seen = []
+    generate_batch = StreamingGenerationEngine.generate_batch
+
+    def spy(self, model, bars, attrs, **kw):
+        seen.append((len(bars), kw.get("devices")))
+        return generate_batch(self, model, bars, attrs, **kw)
+
+    monkeypatch.setattr(StreamingGenerationEngine, "generate_batch", spy)
+    tmp_path, cfg_yaml = decode_only_env
+    assert infer.main(["--config", str(cfg_yaml), *ARGS, "--sweep", "--output_name", "one"]) == 0
+    assert seen == [(27, None)]
+
+
 def test_sweep_of_empty_streams_writes_the_jax_packages_files(decode_only_env):  # noqa: F811
     """With max_output_tokens 0 every stream is empty; the JAX package's
     sweep still writes one .mid per combo, and so must the port's."""

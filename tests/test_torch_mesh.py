@@ -5,12 +5,18 @@ keeps (JAX's P(None, data) shards of the same numpy batch, exactly), the
 flat FSDP partition, the CLI's data-axis sizing (JAX train.py:146-152), and
 the streaming sweep spread over several devices (tokens equal to the
 one-device run and to JAX's mesh run, exactly, as
-tests/test_stream_sharded.py holds JAX's mesh run to its one-device run).
+tests/test_stream_sharded.py holds JAX's mesh run to its one-device run);
+and `spawn_ranks`, which starts the ranks of the CLI, the dryrun and the
+benchmark.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -182,3 +188,34 @@ def test_sampled_sweep_repeats_for_a_seed_and_device_count(sweep_models):
     b = engine.generate_batch(model, xs, ats, devices=["cpu"] * 2, **kw)
     assert a == b
     assert engine.generate_batch(model, xs, ats, devices=["cpu"] * 2, **{**kw, "seed": 8}) != a
+
+
+# A world of spawn_ranks runs in a subprocess killed past this deadline
+# (the ranks' own group times out after torch_mesh_worker.TIMEOUT_S).
+SPAWN_DEADLINE_S = 120
+
+
+def _spawn_ranks(world: int, fail_rank: int) -> subprocess.CompletedProcess:
+    tests = Path(__file__).resolve().parent
+    code = (f"import json, sys; sys.path[:0] = [{str(tests.parent)!r}, {str(tests)!r}]; "
+            "from etude_tpu_torch.parallel.mesh import spawn_ranks; "
+            "from torch_mesh_worker import spawn_probe; "
+            f"print(json.dumps(spawn_ranks(spawn_probe, {world}, {fail_rank})))")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=SPAWN_DEADLINE_S)
+
+
+@pytest.mark.parametrize("world", [1, 3])
+def test_spawn_ranks_returns_rank_zeros_record(world):
+    proc = _spawn_ranks(world, -1)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.splitlines()[-1]) == {"world": world,
+                                                        "sum": world * (world - 1) // 2}
+
+
+def test_spawn_ranks_raises_when_a_rank_fails():
+    """The failing rank ends the others (waiting at the rendezvous) and the
+    error reaches the caller."""
+    proc = _spawn_ranks(2, 1)
+    assert proc.returncode != 0
+    assert "rank 1 fails on purpose" in proc.stderr

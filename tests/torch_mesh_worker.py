@@ -15,7 +15,8 @@ a step at which the last rank's activations turn NaN (`nan_step`), a
 checkpoint to load first (rank 0 saves what it restored as `loaded.npz`) or
 to save after a step, and whether to check that checkpoint's bitwise
 resume. Each rank writes its metrics to
-`rank<r>.json` in the spec's `out` directory.
+`rank<r>.json` in the spec's `out` directory. `spawn_probe` is a rank for
+`parallel.mesh.spawn_ranks`.
 """
 
 from __future__ import annotations
@@ -136,6 +137,26 @@ def main(spec_path: str, rank: int) -> None:
     record.update(step=int(state.step), skipped=int(state.skipped),
                   count=int(state.opt_state.count))
     (out / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def spawn_probe(rank: int, world: int, address: str, out: str, fail_rank: int) -> None:
+    """A rank for `parallel.mesh.spawn_ranks`: rank `fail_rank` raises
+    before it joins; the others sum their ranks over gloo, and rank 0
+    writes {"world", "sum"} to `out`."""
+    import datetime
+
+    import torch.distributed as dist
+    from etude_tpu_torch.parallel.mesh import initialize_multihost
+
+    if rank == fail_rank:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    initialize_multihost(address, world, rank, device="cpu",
+                         timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    total = torch.tensor([rank])
+    dist.all_reduce(total)
+    if rank == 0:
+        Path(out).write_text(json.dumps({"world": world, "sum": int(total)}))
     dist.destroy_process_group()
 
 
