@@ -129,7 +129,8 @@ Phases, each announced with a flushed line when it starts and ends:
                     that it must catch, and K2's forward at the training
                     shape; then `etude_tpu_torch.train_aux` in-process for
                     beat, amt and separator at the published widths and
-                    the script's batches and frames, 30 steps each, with 2
+                    the script's batches and frames (AUX_CLI_STEPS: beat
+                    30 steps, amt and separator 15), with 2
                     held-out clips: warm step time, the host's share of
                     it, peak memory, a profiled window's device idle share,
                     9 K2 and 9 K2b launches per beat step; checks, each
@@ -138,7 +139,33 @@ Phases, each announced with a flushed line when it starts and ends:
                     against the CPU (labels shifted), and `--input` on a
                     30 s click track served from the phase's own exports
                     (loaded, no random weights; 9 K2 launches)
- 14. recipe         the decoder's recipe through the scripts, at full width:
+ 14. corpus         the aux models' corpus training at the published widths,
+                    from the aux_train phase's exports (the separator of the
+                    features, the warm starts), on a synthetic corpus of
+                    CORPUS_SONGS songs of about a minute written from a seed
+                    (`tools/synthetic_corpus.py`, at
+                    `corpus_render.CORPUS_ROOT`): the scene and pseudo-pop
+                    scripts (`gen_beat_scenes`, `gen_pseudopop_scenes`
+                    render and features, `gen_pseudopop_sep_examples`),
+                    whose shards must hold the JAX scripts' keys, shapes
+                    and dtypes; `train_aux` in-process for `beat-corpus
+                    --corpus-limit 2`, `beat --scenes-dir`, `amt-corpus`
+                    and `separator --pseudopop-mix 0.5` with and without
+                    `--pseudopop-cache`, CORPUS_STEPS steps each at the
+                    published batch: the warm step with the batch wait's
+                    share, the device's idle share (against the aux_train
+                    phase's profiled device time per step of the same
+                    model at the same batch shape), exports
+                    whose metadata have the JAX keys with finite values in
+                    range, the feature cache's files; `validate_beat_corpus`
+                    and `eval_separator_pseudopop` on the held-out songs;
+                    in every stage K2 launches = 9 per Beat-Transformer
+                    forward (forwards counted apart) and K2b launches = 9
+                    per beat training step; one beat-corpus batch's loss,
+                    card bf16 against CPU f32, within aux_train's limit
+                    (control: the labels shifted); the wall of each stage
+                    and the render's seconds per audio second
+ 15. recipe         the decoder's recipe through the scripts, at full width:
                     `dagger_rollouts --batch 16` in-process on 16 corpus
                     songs cut to 6 bars, from the train phase's export
                     (wall, tok/s, K1 launches = the engine's S = 1 chunks
@@ -151,8 +178,9 @@ Phases, each announced with a flushed line when it starts and ends:
                     settings, 4 steps) as a child of `supervise_train`:
                     finite losses, no skip, chunks with rollout history
                     (control: dagger_history false gives none), the
-                    child's CPU share per poll; `train_attr_prior` on all
-                    500 songs on the card (features and fit timed apart,
+                    child's CPU share per poll; `train_attr_prior` on the
+                    first PRIOR_SONGS corpus songs on the card (features
+                    and fit timed apart,
                     held-out accuracy beside the majority baseline), the
                     card's f64 fit against the CPU's on 30 songs (control:
                     another seed), `--decode-only --attrs-prior` from it;
@@ -165,7 +193,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     `separate_features` bit for bit (control: another
                     seed's track); `entry()` on the card, bf16 vs the
                     CPU's f32 (control: one layer's attention zeroed)
- 15. options        the serving CLI's other options, each check beside a
+ 16. options        the serving CLI's other options, each check beside a
                     control it must catch: `--decode-only --engine rebuild`
                     on the cli phase's work dir (K1 launches = the S = 1
                     steps counted from outside the engine x 8 layers; the
@@ -177,7 +205,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     `--attrs-prior` (the engine's per-bar bins equal the
                     CPU's predictor's; logits under them card vs CPU, a
                     constant combo the control); the int8 KV cache against
-                    bf16 on 16 streams x 24 bars (64-token cap): tok/s,
+                    bf16 on 16 streams x QUANT_BARS (64-token cap): tok/s,
                     cache bytes, int8 logits card vs CPU within
                     QUANT_LOGIT_ATOL; the separator bypass card vs CPU
                     within BYPASS_DB_ATOL (control: a frame late) and
@@ -190,8 +218,8 @@ Phases, each announced with a flushed line when it starts and ends:
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
 serving, structuralize, pipeline, prepare, cli, train, multigpu, aux_train,
-recipe and options runs,
-each counted from 0 (K2b's: the aux_train beat run's), then
+corpus, recipe and options runs,
+each counted from 0 (K2b's: the aux_train and corpus phases' beat runs'), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
 CUDA, and a directory that holds this script without the package. It
@@ -241,13 +269,16 @@ BYPASS_DB_ATOL = 1e-3
 # this limit unset: 0.0152 (the bf16 chunks: 0.0124); zeroing layer 0's
 # attention output moves them by 1.18. Twice the reading.
 QUANT_LOGIT_ATOL = 3e-2
+# The int8 and bf16 caches are timed over the first QUANT_BARS corpus bars
+# (24 until the corpus phase needed the room).
+QUANT_BARS = 16
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
 # The serving phase decodes its 24 corpus bars greedily (GREEDY_BARS; the
 # cache is C = 1217), then samples over the first SAMPLED_BARS: enough to
 # check both, and it keeps the whole run inside its time limit on a slow
-# host.
-GREEDY_BARS, SAMPLED_BARS = 24, 8
+# host beside the corpus phase.
+GREEDY_BARS, SAMPLED_BARS = 24, 4
 ORIGIN_SR, ALIGN_SR = 44100, 22050
 # The prepare phase's covers: the origin's notes shifted and swung by
 # ±WARP_SECONDS over WARP_PERIOD, which keeps the WP-Std of a grid through
@@ -293,9 +324,13 @@ STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_MOMENT_RTOL, STEP_UPDATE_RTOL = 2e-3, 1e-3,
 # card that happens to be deterministic). The card is not: two straight
 # runs of 42 steps part by 1.4e-4 to 3.3e-4 in a loss of 3.0 on an H100.
 RESUME_SPREAD_FACTOR = 3.0
-# Aux training: optimizer steps of each CLI run, held-out clips, and the
-# dilations of K2b's check at the serving bucket.
+# Aux training: optimizer steps of the learning check and of the schedule
+# elsewhere, held-out clips, the served track's seconds, and each mode's CLI
+# steps (the hFT's and the separator's at 15, half the beat model's, to
+# keep the run inside its time limit). The beat model keeps 30: `--input`
+# from the exports needs its downbeats, which 10 steps did not give.
 AUX_STEPS, AUX_EVAL_CLIPS, AUX_SERVE_SECONDS = 30, 2, 30.0
+AUX_CLI_STEPS = {"beat": 30, "amt": 15, "separator": 15}
 # K2b against autograd of the plain version in f32 from the same bf16
 # inputs: dq, dk, dv within two bf16 ulps of each one's largest |value|
 # (kernel_tolerance: they are rounded once), der within this share of its
@@ -326,13 +361,34 @@ AUX_LEARN_DROP = 0.5
 # update's.
 AUX_STEP_LIMITS = {"beat": {"bf16": (5e-3, 2e-2, 0.3)}, "amt": {"bf16": (5e-3, 2e-2, 0.2)},
                    "separator": {"bf16": (5e-3, 0.1, None), "f32": (1e-5, 1e-4, 0.05)}}
+# The corpus phase: CORPUS_SONGS synthetic songs of CORPUS_SECONDS from seed
+# 0, CORPUS_STEPS steps of each corpus mode at the published batch, one
+# held-out synthetic clip, the held-out corpus evaluations' horizon in
+# seconds, and the shards of the scripts (scenes of each kind, separator
+# rows).
+CORPUS_SONGS, CORPUS_SECONDS, CORPUS_STEPS = 6, (55.0, 65.0), 10
+CORPUS_EVAL_SECONDS, CORPUS_SCENES, CORPUS_SEP_ROWS = 30.0, 4, 8
+# The metadata keys of each corpus run beside the loop's (first_loss,
+# final_loss, steps, seconds), as the JAX script writes them.
+CORPUS_META = {
+    "beat-corpus": {"beat_f_corpus", "beat_f_corpus_octave", "beat_f_per_song",
+                    "beat_f_synthetic", "corpus", "corpus_frac", "train_song_versions",
+                    "eval_songs", "warm_start", "train_frames", "model"},
+    "beat": {"beat_f_measure", "corpus", "corpus_mix", "train_frames", "model",
+             "beat_f_corpus", "beat_f_corpus_octave", "beat_f_per_song", "eval_songs"},
+    "amt-corpus": {"onset_f1_corpus", "onset_f1_per_song", "eval_seconds", "corpus",
+                   "corpus_frac", "train_songs", "eval_songs", "warm_start", "model"},
+    "separator": {"stem_sdr_db", "baseline_sdr_db", "corpus", "train_frames", "model"},
+}
 # The recipe phase: the rollouts' songs (every RECIPE_STRIDE-th corpus song
 # with RECIPE_BARS bar pairs, cut to them), the DAgger fine-tune's steps, the
-# attribute prior's card-vs-CPU fit (songs, steps; f64 on both, weights
-# stored as f32: held to 1e-6 relative with a 1e-7 floor; equal bit for
-# bit on an H100, another seed 0.0198 away),
-# and the remap check's chunk of corpus tokens.
+# attribute prior's songs (the first PRIOR_SONGS of the corpus: its
+# features are host work, about 31 s for all 500 songs on an H100's host)
+# and its card-vs-CPU fit (songs, steps; f64 on both, weights stored as f32:
+# held to 1e-6 relative with a 1e-7 floor; equal bit for bit on an H100,
+# another seed 0.0198 away), and the remap check's chunk of corpus tokens.
 RECIPE_SONGS, RECIPE_BARS, RECIPE_STRIDE, RECIPE_STEPS = 16, 6, 25, 4
+PRIOR_SONGS = 100
 PRIOR_SUBSET_SONGS, PRIOR_STEPS, PRIOR_RTOL, PRIOR_ATOL = 30, 300, 1e-6, 1e-7
 REMAP_TOKENS = 256
 # The multigpu phase: steps of the mesh step against the plain one, the
@@ -2009,8 +2065,8 @@ def aux_args(mode, **overrides):
 
 def aux_cli_run(out: Path, mode: str):
     """`python -m etude_tpu_torch.train_aux <mode>` in-process at the
-    published widths: 30 steps, 2 held-out clips. Returns the run, its warm
-    median step and its K2 and K2b launches."""
+    published widths: AUX_CLI_STEPS[mode] steps, 2 held-out clips. Returns
+    the run, its warm median step and its K2 and K2b launches."""
     import math
 
     import torch
@@ -2022,7 +2078,8 @@ def aux_cli_run(out: Path, mode: str):
     torch.cuda.reset_peak_memory_stats()
     dilated_attention.launches = dilated_attention_backward.launches = 0
     t = time.perf_counter()
-    run, = train_aux.run([mode, "--steps", str(AUX_STEPS), "--eval-clips", str(AUX_EVAL_CLIPS),
+    steps = AUX_CLI_STEPS[mode]
+    run, = train_aux.run([mode, "--steps", str(steps), "--eval-clips", str(AUX_EVAL_CLIPS),
                           "--output-dir", str(out)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -2031,19 +2088,19 @@ def aux_cli_run(out: Path, mode: str):
     median = statistics.median(warm)
     meta = json.loads((out / train_aux.EXPORT_NAMES[mode] / "metadata.json").read_text())
     held_out = {k: v for k, v in meta.items() if k.endswith(("f_measure", "f1", "sdr_db"))}
-    say(f"  {mode}: {AUX_STEPS} steps in {wall:.2f} s (build, steps, evaluation, export); "
+    say(f"  {mode}: {steps} steps in {wall:.2f} s (build, steps, evaluation, export); "
         f"warm step median {1e3 * median:.2f} ms (min {1e3 * min(warm):.2f}, max "
         f"{1e3 * max(warm):.2f}; CUDA events between steps); the host's batch wait "
         f"{sum(waits) / sum(warm):.3f} of the warm steps' time (median wait "
         f"{1e3 * statistics.median(waits):.2f} ms); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss {run.losses[0]:.4f} -> "
         f"{run.losses[-1]:.4f}; held-out {held_out}; K2 launches {k2}, K2b {k2b}")
-    if len(run.losses) != AUX_STEPS or not all(math.isfinite(x) for x in run.losses):
+    if len(run.losses) != steps or not all(math.isfinite(x) for x in run.losses):
         raise RuntimeError(f"{mode}: {len(run.losses)} steps, losses {run.losses}")
     if not held_out or not all(math.isfinite(v) for v in held_out.values()):
         raise RuntimeError(f"{mode}: held-out evaluation {held_out}")
     # K2b: one kernel launch per call, one call per layer and step.
-    expect = ((9 * (AUX_STEPS + AUX_EVAL_CLIPS), 9 * AUX_STEPS) if mode == "beat"
+    expect = ((9 * (steps + AUX_EVAL_CLIPS), 9 * steps) if mode == "beat"
               else (0, 0))
     if (k2, k2b) != expect:
         raise RuntimeError(f"{mode}: K2/K2b launched {k2}/{k2b} times, expected {expect}")
@@ -2073,7 +2130,9 @@ def device_aux_batch(host, device):
 
 def aux_profile(mode, median_s):
     """3 warm steps of `mode` on pre-built batches, unprofiled then under
-    the profiler: device time per step against the CLI's warm median."""
+    the profiler: device time per step against the CLI's warm median.
+    Returns the device time per step in ms, or None when the profiler saw
+    no device time."""
     import torch
 
     task, opt, step = aux_state(mode, "cuda")
@@ -2093,9 +2152,11 @@ def aux_profile(mode, median_s):
     say(f"  {mode} profiled window: 3 steps on pre-built batches, unprofiled wall "
         f"{1e3 * wall / 3:.2f} ms per step")
     busy = profile_device(window, wall)
-    if busy is not None:
-        say(f"  {mode}: device time per step {busy / 3:.2f} ms -> device idle share of the "
-            f"CLI's warm step {1 - busy / 3 / (1e3 * median_s):.3f}")
+    if busy is None:
+        return None
+    say(f"  {mode}: device time per step {busy / 3:.2f} ms -> device idle share of the "
+        f"CLI's warm step {1 - busy / 3 / (1e3 * median_s):.3f}")
+    return busy / 3
 
 
 def aux_learning(mode):
@@ -2254,7 +2315,7 @@ def aux_serve(root: Path, exports: Path) -> int:
 
 def aux_train_phase(root: Path, flush):
     """The aux_train phase; returns (K2 launches, K2b launches, K2b rows,
-    the separator's export)."""
+    the exports' directory, each mode's device ms per warm step)."""
     import torch
 
     # K2's forward at the training shape first: its backward rests on it.
@@ -2271,17 +2332,329 @@ def aux_train_phase(root: Path, flush):
 
     exports = root / "exports"
     k2 = k2b = 0
+    device_ms = {}
     for mode in ("beat", "amt", "separator"):
         run, median, a, b = aux_cli_run(exports, mode)
         k2, k2b = k2 + a, k2b + b
-        aux_profile(mode, median)
+        device_ms[mode] = aux_profile(mode, median)
         torch.cuda.empty_cache()
     for mode in ("beat", "amt", "separator"):
         aux_learning(mode)
         aux_parity(mode)
         torch.cuda.empty_cache()
     k2 += aux_serve(root / "serve", exports)
-    return k2, k2b, rows, exports / "separator" / "latest"
+    return k2, k2b, rows, exports, device_ms
+
+
+# ---------------------------------------------------------------- corpus
+class _ForwardCounter:
+    """Counts Beat-Transformer forwards (every instance) while active."""
+
+    def __init__(self):
+        from etude_tpu_torch.models.beat_transformer import BeatTransformer
+
+        self.cls, self.forward, self.n = BeatTransformer, BeatTransformer.forward, 0
+
+    def __enter__(self):
+        counter = self
+
+        def forward(model, *args, **kw):
+            counter.n += 1
+            return counter.forward(model, *args, **kw)
+
+        self.cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.forward
+
+
+def corpus_stage(walls, name, run, beat_steps=0):
+    """Run one stage of the corpus phase with K2, K2b and the forwards
+    counted from 0: K2 must launch 9 times per Beat-Transformer forward and
+    K2b 9 times per beat training step. Returns (its result, K2, K2b)."""
+    import torch
+    from etude_tpu_torch.ops.dilated_attention import (
+        dilated_attention, dilated_attention_backward,
+    )
+
+    dilated_attention.launches = dilated_attention_backward.launches = 0
+    t = time.perf_counter()
+    with _ForwardCounter() as forwards:
+        out = run()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t
+    k2, k2b = dilated_attention.launches, dilated_attention_backward.launches
+    say(f"  [{name}] {walls[name]:.2f} s; Beat-Transformer forwards {forwards.n}, K2 "
+        f"launches {k2}, K2b {k2b} (beat training steps {beat_steps})")
+    if (k2, k2b) != (9 * forwards.n, 9 * beat_steps):
+        raise RuntimeError(f"{name}: K2/K2b launched {k2}/{k2b} times for {forwards.n} "
+                           f"forwards and {beat_steps} beat steps")
+    return out, k2, k2b
+
+
+def check_shards(directory: Path, layout) -> int:
+    """Every shard_*.npz under `directory` holds exactly `layout`'s keys
+    ({key: (trailing shape, dtype)}), finite, one row count; returns the
+    rows."""
+    import numpy as np
+
+    shards = sorted(directory.glob("shard_*.npz"))
+    rows = 0
+    for path in shards:
+        with np.load(path) as z:
+            if sorted(z.files) != sorted(layout):
+                raise RuntimeError(f"{path}: keys {z.files}, expected {sorted(layout)}")
+            n = {z[k].shape[0] for k in layout}
+            for key, (shape, dtype) in layout.items():
+                a = z[key]
+                if a.shape[1:] != shape or a.dtype != np.dtype(dtype):
+                    raise RuntimeError(f"{path}: {key} {a.shape} {a.dtype}, expected "
+                                       f"[n, {shape}] {dtype}")
+                if not np.isfinite(a.astype(np.float32)).all():
+                    raise RuntimeError(f"{path}: {key} is not finite")
+        if len(n) != 1:
+            raise RuntimeError(f"{path}: row counts {n}")
+        rows += n.pop()
+    if not rows:
+        raise RuntimeError(f"no shard rows under {directory}")
+    return rows
+
+
+def check_corpus_meta(out: Path, export: str, mode: str, corpus: str) -> dict:
+    """The export's metadata: the JAX keys, finite numbers, F-measures in
+    [0, 1], the expected `corpus` string; the params load."""
+    import math
+
+    from etude_tpu_torch.utils.training import load_params_only
+
+    meta = json.loads((out / export / "metadata.json").read_text())
+    want = {"first_loss", "final_loss", "steps", "seconds"} | CORPUS_META[mode]
+    if set(meta) != want:
+        raise RuntimeError(f"{export} metadata keys {sorted(meta)}, expected {sorted(want)}")
+    if meta["corpus"] != corpus or meta["steps"] != CORPUS_STEPS:
+        raise RuntimeError(f"{export} metadata: corpus {meta['corpus']!r}, steps "
+                           f"{meta['steps']}")
+
+    def numbers(value):
+        if isinstance(value, dict):
+            return [x for v in value.values() for x in numbers(v)]
+        return [value] if isinstance(value, float) else []
+
+    for key, value in meta.items():
+        for x in numbers(value):
+            if not math.isfinite(x):
+                raise RuntimeError(f"{export} metadata {key} = {value}")
+            if key.startswith(("beat_f", "onset_f1")) and not 0.0 <= x <= 1.0:
+                raise RuntimeError(f"{export} metadata {key} = {value} out of [0, 1]")
+    load_params_only(out / export / "latest")
+    return meta
+
+
+def corpus_train(walls, out: Path, label: str, argv, export: str, corpus: str,
+                 beat: bool):
+    """`train_aux` in-process for CORPUS_STEPS steps: returns (its metadata,
+    its warm median step in s, K2, K2b)."""
+    from etude_tpu_torch import train_aux
+
+    def run():
+        return train_aux.run([*argv, "--steps", str(CORPUS_STEPS), "--eval-clips", "1",
+                              "--eval-seconds", str(CORPUS_EVAL_SECONDS),
+                              "--output-dir", str(out)])
+
+    (aux_run,), k2, k2b = corpus_stage(walls, label, run, CORPUS_STEPS if beat else 0)
+    warm, waits = aux_run.step_seconds[1:], aux_run.wait_seconds[1:]
+    median = statistics.median(warm)
+    meta = check_corpus_meta(out, export, argv[0], corpus)
+    held_out = {k: v for k, v in meta.items() if k.startswith(("beat_f", "onset_f1", "stem_sdr",
+                                                               "baseline_sdr"))}
+    say(f"  {label}: warm step median {1e3 * median:.2f} ms (min {1e3 * min(warm):.2f}, max "
+        f"{1e3 * max(warm):.2f}); the host's batch wait {sum(waits) / sum(warm):.3f} of the "
+        f"warm steps' time; loss {aux_run.losses[0]:.4f} -> {aux_run.losses[-1]:.4f}; "
+        f"held-out {held_out}")
+    return meta, median, k2, k2b
+
+
+def corpus_loss_parity(out: Path):
+    """One beat-corpus batch (step 0 of the task rebuilt on the CPU from the
+    run's export and feature cache) through the Beat-Transformer it trained:
+    the card's bf16 loss against the CPU's f32 within aux_train's beat loss
+    limit; the same batch with its labels shifted must miss it."""
+    import torch
+    from etude_tpu_torch import train_aux
+    from etude_tpu_torch.models import beat_transformer as bt
+    from etude_tpu_torch.weights import beat_transformer_from_jax, beat_transformer_to_jax
+
+    args = train_aux.parse_args(["beat-corpus", "--corpus-limit", "2", "--device", "cpu",
+                                 "--output-dir", str(out), "--eval-seconds",
+                                 str(CORPUS_EVAL_SECONDS)])
+    args.batch, args.lr = train_aux.DEFAULTS["beat-corpus"]
+    args.output_dir = out
+    cpu = train_aux.TASKS["beat-corpus"](args, torch.device("cpu"))
+    host = cpu.gen(0)
+    card = beat_transformer_from_jax(beat_transformer_to_jax(cpu.model), cpu.model.config,
+                                     "cuda")
+
+    def loss(model, batch, device, dtype):
+        with torch.no_grad():
+            value, _ = bt.loss_fn(model, device_aux_batch(batch, device), dtype)
+        return float(value)
+
+    ref = loss(cpu.model, host, "cpu", torch.float32)
+    got = loss(card, host, "cuda", torch.bfloat16)
+    control = loss(card, shift_labels("beat", host), "cuda", torch.bfloat16)
+    limit = AUX_STEP_LIMITS["beat"]["bf16"][0]
+    gap, control_gap = abs(got / ref - 1), abs(control / ref - 1)
+    say(f"  beat-corpus batch loss, card bf16 {got:.6f} vs CPU f32 {ref:.6f}: relative gap "
+        f"{gap:.3g} (limit {limit:g}); control, labels shifted: {control:.6f}, gap "
+        f"{control_gap:.3g}")
+    if gap > limit:
+        raise RuntimeError(f"beat-corpus loss: card {got} vs CPU {ref}")
+    if control_gap <= limit:
+        raise RuntimeError("beat-corpus loss check missed its control (labels shifted)")
+
+
+def corpus_phase(root: Path, exports: Path, device_ms):
+    """The corpus phase, from the aux_train phase's exports and its device
+    ms per warm step of each model (the corpus modes train the same models
+    at the same batch shapes, so the device's work per step is the same;
+    their steps differ in the host's batches); returns its (K2 launches,
+    K2b launches)."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from etude_tpu_torch.data import corpus_render, synthetic as syn
+    from etude_tpu_torch.scripts import (
+        eval_separator_pseudopop, gen_beat_scenes, gen_pseudopop_scenes,
+        gen_pseudopop_sep_examples, validate_beat_corpus,
+    )
+    from etude_tpu_torch.tools.synthetic_corpus import write_corpus
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    walls = {}
+    songs = root / "songs"
+    t = time.perf_counter()
+    write_corpus(songs, CORPUS_SONGS, CORPUS_SECONDS, seed=0)
+    walls["corpus"] = time.perf_counter() - t
+    corpus_render.CORPUS_ROOT = songs
+    meta = json.loads((songs / "songs.json").read_text())
+    say(f"  synthetic corpus: {CORPUS_SONGS} songs, "
+        + ", ".join(f"{k} {v['bpm']:.1f} bpm {v['seconds']:.1f} s" for k, v in meta.items()))
+    notes = [n for n in read_midi_notes(songs / "CPOP02" / "etude_d.mid") if n["onset"] < 15.0]
+    horizon = max(n["offset"] for n in notes) + 1.0
+    t = time.perf_counter()
+    syn.render_piano(notes, horizon, sr=44100)
+    render_rate = (time.perf_counter() - t) / horizon
+    say(f"  render: {render_rate:.4f} s per audio second (additive synth at 44.1 kHz, "
+        f"{len(notes)} notes over {horizon:.1f} s, one thread)")
+
+    out = root / "out"
+    shutil.copytree(exports, out)
+    separator = ["--separator-model", str(out / "separator" / "latest")]
+    k2 = k2b = 0
+
+    def script(name, module, argv, layout=None, shards=None):
+        nonlocal k2
+        rc, a, _ = corpus_stage(walls, name, lambda: module.main(argv))
+        k2 += a
+        if rc != 0:
+            raise RuntimeError(f"{name} exited {rc}")
+        if layout is not None:
+            say(f"  {name}: {check_shards(shards, layout)} rows with the JAX keys and shapes")
+
+    scene = {"x": ((5, 512, 128), "float16"), "activations": ((512, 2), "float16"),
+             "tempo": ((), "int32")}
+    script("gen_beat_scenes", gen_beat_scenes,
+           ["--n-scenes", str(CORPUS_SCENES), "--shard-size", "2", "--out",
+            str(root / "scenes"), "--corpus", str(songs), *separator], scene, root / "scenes")
+    script("gen_pseudopop_scenes render", gen_pseudopop_scenes,
+           ["--stage", "render", "--n-scenes", str(CORPUS_SCENES), "--out", str(root / "pp"),
+            "--corpus", str(songs)])
+    script("gen_pseudopop_scenes features", gen_pseudopop_scenes,
+           ["--stage", "features", "--out", str(root / "pp"), *separator], scene, root / "pp")
+    script("gen_pseudopop_sep_examples", gen_pseudopop_sep_examples,
+           ["--n", str(CORPUS_SEP_ROWS), "--shard-size", "4", "--out", str(root / "ppsep")],
+           {"mix_mag": ((256, 2049), "float16"), "stem_mags": ((5, 256, 2049), "float16")},
+           root / "ppsep")
+
+    idle = {}
+    runs = (
+        ("beat-corpus", ["beat-corpus", "--corpus-limit", "2"], "beat_detector",
+         "rendered-corpus(serving-chain)+synthetic-scenes", "beat"),
+        ("beat --scenes-dir", ["beat", "--scenes-dir", str(root / "scenes")], "beat_detector",
+         "synthetic-scenes + corpus-piano-scenes", "beat"),
+        ("amt-corpus", ["amt-corpus"], "extractor",
+         "rendered-corpus(serving-chain)+synthetic", "amt"),
+        ("separator pseudo-pop cache", ["separator", "--pseudopop-mix", "0.5",
+                                        "--pseudopop-cache", str(root / "ppsep")],
+         "separator", "synthetic-stems", "separator"),
+        ("separator pseudo-pop", ["separator", "--pseudopop-mix", "0.5"], "separator",
+         "synthetic-stems + pseudo-pop audio stems (mix 0.50)", "separator"),
+    )
+    for label, argv, export, corpus, model in runs:
+        meta, median, a, b = corpus_train(walls, out, label, argv, export, corpus,
+                                          model == "beat")
+        k2, k2b = k2 + a, k2b + b
+        if device_ms.get(model) is not None:
+            idle[label] = 1 - device_ms[model] / (1e3 * median)
+            say(f"  {label}: device idle share of the warm step {idle[label]:.3f} "
+                f"({device_ms[model]:.2f} ms of device time per {model} step, aux_train's "
+                f"profiled window)")
+        if label == "beat-corpus":
+            cache = out / "beat_corpus_cache"
+            entries = sorted(cache.glob("*.npz"))
+            if meta["warm_start"] != str(out / "beat_detector" / "latest") or \
+                    meta["train_song_versions"] != len(entries) or len(entries) != 4:
+                raise RuntimeError(f"beat-corpus: warm start {meta['warm_start']}, "
+                                   f"{len(entries)} cache files")
+            frames = 0
+            for path in entries:
+                with np.load(path) as z:
+                    if sorted(z.files) != ["beat_times", "bpm", "downbeat_times", "features"] \
+                            or z["features"].dtype != np.float16 \
+                            or z["features"].shape[::2] != (5, 128):
+                        raise RuntimeError(f"{path}: {z.files}, {z['features'].shape}")
+                    frames += z["features"].shape[1]
+            say(f"  feature cache: {len(entries)} files with the JAX keys, {frames} frames")
+            corpus_loss_parity(out)
+        if label == "amt-corpus" and meta["warm_start"] != str(out / "extractor" / "latest"):
+            raise RuntimeError(f"amt-corpus warm start {meta['warm_start']}")
+        torch.cuda.empty_cache()
+
+    models = [*separator, "--beat-model", str(out / "beat_detector" / "latest")]
+    buffer = io.StringIO()
+
+    def validate():
+        with contextlib.redirect_stdout(buffer):
+            return validate_beat_corpus.main(["--corpus", str(songs), "--held-out-only",
+                                              "--songs", "2", "--seconds",
+                                              str(CORPUS_EVAL_SECONDS), *models])
+
+    rc, a, _ = corpus_stage(walls, "validate_beat_corpus", validate)
+    k2 += a
+    summary = json.loads(buffer.getvalue().strip().splitlines()[-1])
+    say(f"  validate_beat_corpus: {json.dumps(summary)}")
+    if rc != 0 or [r["song"] for r in summary["songs"]] != ["CPOP01", "CPOP04"] \
+            or a != 9 * 2:
+        raise RuntimeError(f"validate_beat_corpus: rc {rc}, {summary}")
+    pp_json = root / "pp_eval.json"
+    rc, a, _ = corpus_stage(walls, "eval_separator_pseudopop", lambda: (
+        eval_separator_pseudopop.main(["--songs", "2", "--seconds", str(CORPUS_EVAL_SECONDS),
+                                       "--corpus", str(songs), "--out", str(pp_json),
+                                       *models])))
+    k2 += a
+    pp = json.loads(pp_json.read_text())
+    say(f"  eval_separator_pseudopop: mean SI-SDR {pp['mean_si_sdr']} (mix as estimate "
+        f"{pp['mean_si_sdr_mix_baseline']}), beat F sep {pp['mean_beat_f_sep']} vs bypass "
+        f"{pp['mean_beat_f_bypass']}")
+    if rc != 0 or len(pp["songs"]) != 2 or a != 9 * 2 * 2:
+        raise RuntimeError(f"eval_separator_pseudopop: rc {rc}, {len(pp['songs'])} songs")
+    say("  corpus walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; render {render_rate:.4f} s per audio s; device idle share "
+        + (", ".join(f"{k} {v:.3f}" for k, v in idle.items()) or "not measured"))
+    return k2, k2b
 
 
 # ---------------------------------------------------------------- recipe
@@ -2491,9 +2864,10 @@ def recipe_finetune(root: Path, data: Path, init_from: Path) -> Path:
 
 
 def recipe_prior(root: Path, run_dir: Path, cli_root: Path) -> int:
-    """`train_attr_prior` on all 500 songs on the card; the card's f64 fit
-    against the CPU's on a subset (another seed the control); then
-    `--decode-only --attrs-prior` from the new prior. Returns K1 launches."""
+    """`train_attr_prior` on the first PRIOR_SONGS corpus songs on the card;
+    the card's f64 fit against the CPU's on a subset (another seed the
+    control); then `--decode-only --attrs-prior` from the new prior.
+    Returns K1 launches."""
     import shutil
 
     import numpy as np
@@ -2502,7 +2876,12 @@ def recipe_prior(root: Path, run_dir: Path, cli_root: Path) -> int:
     from etude_tpu_torch.models.attr_prior import AttrPrior
     from etude_tpu_torch.scripts import train_attr_prior
 
-    run = train_attr_prior.run(["--out", str(root / "attr_prior")])
+    data = root / "prior_data"
+    for song in sorted((ROOT / "dataset_distill/tokenized").iterdir())[:PRIOR_SONGS]:
+        shutil.copytree(song, data / "tokenized" / song.name,
+                        ignore=shutil.ignore_patterns("*_hist.npy"))
+    shutil.copy(ROOT / "dataset_distill/vocab.json", data / "vocab.json")
+    run = train_attr_prior.run(["--dataset", str(data), "--out", str(root / "attr_prior")])
     meta = run.meta
     say(f"  attribute prior, {meta['bar_pairs']} bar pairs of {meta['songs']} songs: features "
         f"{run.feature_seconds:.2f} s on the host (the edges' dataset load included), fit "
@@ -3117,23 +3496,25 @@ def quant_parity(model, host_model, config, bars, attr):
 
 
 def options_kv_quant(model, host_model, config, vocab, bars, attrs):
-    """16 streams x 24 corpus bars (bars capped at 64 tokens), greedy, with
-    the bf16 cache (K1) and the int8 cache (no kernel): tok/s and cache
-    bytes of each; then int8 card vs CPU logits. Returns the bf16 run's K1
-    launches."""
+    """16 streams x the first QUANT_BARS corpus bars (bars capped at 64
+    tokens), greedy, with the bf16 cache (K1) and the int8 cache (no
+    kernel): tok/s and cache bytes of each; then int8 card vs CPU logits.
+    Returns the bf16 run's K1 launches."""
     from etude_tpu_torch.models.generate_stream import (StreamingGenerationEngine,
                                                         init_stream_cache)
 
     kw = dict(bar_bos_id=vocab.bar_bos_id, bar_eos_id=vocab.bar_eos_id, pad_id=vocab.pad_id,
               max_bar_token_limit=64)
     engines = {q: StreamingGenerationEngine(config, kv_quant=q, **kw) for q in (False, True)}
-    C = engines[False].pack([bars] * len(attrs), attrs)["cache_len"]
+    timed = bars[:QUANT_BARS]
+    C = engines[False].pack([timed] * len(attrs), attrs)["cache_len"]
     launches = 0
     for quant in (False, True):
         engine = engines[quant]
         engine.stats["single_token_chunks"] = 0
-        outs, tokens, seconds, n = engine_run(engine, model, bars, attrs)
-        check_streams(outs, len(bars), vocab.bar_bos_id, vocab.bar_eos_id, config.vocab_size, 64)
+        outs, tokens, seconds, n = engine_run(engine, model, timed, attrs)
+        check_streams(outs, len(timed), vocab.bar_bos_id, vocab.bar_eos_id, config.vocab_size,
+                      64)
         expected = 0 if quant else engine.stats["single_token_chunks"] * config.num_hidden_layers
         if n != expected:
             raise RuntimeError(f"kv_quant={quant}: K1 launched {n} times, expected {expected}")
@@ -3836,8 +4217,15 @@ def main() -> int:
         with phase("aux_train"):
             from etude_tpu_torch.utils.kernel_bench import L2Flush
 
-            aux_k2, k2b_launches, k2b_rows, separator = aux_train_phase(tmp / "aux", L2Flush())
+            aux_k2, k2b_launches, k2b_rows, exports, device_ms = aux_train_phase(tmp / "aux",
+                                                                                 L2Flush())
             k2_launches += aux_k2
+            separator = exports / "separator" / "latest"
+
+        with phase("corpus"):
+            corpus_k2, corpus_k2b = corpus_phase(tmp / "corpus", exports, device_ms)
+            k2_launches += corpus_k2
+            k2b_launches += corpus_k2b
 
         with phase("recipe"):
             launches += recipe_phase(tmp / "recipe", trained, separator, tmp / "cli")

@@ -15,8 +15,9 @@ Layout (mirrors etude_tpu/):
                hFT (both ways)
   infer.py     the inference CLI (python -m etude_tpu_torch.infer --input / --decode-only)
   train.py     the decoder's training CLI (python -m etude_tpu_torch.train)
-  train_aux.py the auxiliary models' training CLI on synthetic corpora
-               (python -m etude_tpu_torch.train_aux {beat,amt,separator,all})
+  train_aux.py the auxiliary models' training CLI on synthetic corpora and
+               the rendered corpus (python -m etude_tpu_torch.train_aux
+               {beat,beat-corpus,amt,amt-corpus,separator,all})
   prepare.py   dataset preparation, stages 2-5 (python -m etude_tpu_torch.prepare)
   evaluate.py  WPD / RGC / IPE of rendered covers (python -m etude_tpu_torch.evaluate)
   parallel/    the training steps (AdamW with accumulation and skip; the aux
@@ -25,8 +26,12 @@ Layout (mirrors etude_tpu/):
                training.py: seeding and the checkpoint format (params.npz),
                preprocess.py: WP-Std, time maps, weak alignment
   data/        vocab, REMI tokenizer, training dataset, synthetic corpora,
-               separation, extractor, beat detector, beat analyzer, hFT
-               stride transcriber, audio aligner
+               the rendered corpus and its pseudo-pop stems, separation,
+               extractor, beat detector, beat analyzer, hFT stride
+               transcriber, audio aligner
+  scripts/     the JAX package's scripts (python -m etude_tpu_torch.scripts.<name>)
+  tools/       kernel A/B, mesh bench, reference-layout weights, the
+               synthetic corpus
   models/      decoder, separator U-Net, Beat-Transformer, hFT transcriber (each
                with its loss), streaming generation engine
   ops/         sampling, mel/DFT, DBN, octave pass, chroma, DTW (wavefront on

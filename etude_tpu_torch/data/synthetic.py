@@ -1,7 +1,7 @@
 """Synthetic training corpora for the three auxiliary models (own copy of
-etude_tpu/data/synthetic.py, limited to what `python -m
-etude_tpu_torch.train_aux` reads: the beat scenes, the additive piano clips
-with their hFT targets, and the separation stems, with the held-out metrics).
+etude_tpu/data/synthetic.py: the beat scenes, the additive piano clips
+with their hFT targets, the separation stems and the pseudo-pop audio
+stems, with the held-out metrics).
 
 Ground truth is exact by construction:
 
@@ -13,10 +13,13 @@ Ground truth is exact by construction:
   * separation     — five spectrally distinct stem magnitude tracks
     (vocals / piano / guitar / bass / drums) whose sum is the mixture.
 
+The pseudo-pop audio stem renderers (`render_vocal`, `render_bass`,
+`render_pad`, `render_drums`) make the five-stem mixtures of
+data/pseudopop.py.
+
 Given the same `np.random.Generator`, every function returns arrays
-bit-equal to the JAX package's (tests/test_torch_synthetic.py). The JAX
-module's pseudo-pop audio stem renderers (`render_vocal`, `render_bass`,
-`render_pad`, `render_drums`) are not copied: no function here calls them.
+bit-equal to the JAX package's (tests/test_torch_synthetic.py,
+tests/test_torch_corpus_data.py).
 """
 
 from __future__ import annotations
@@ -301,6 +304,125 @@ def render_piano(notes: List[Dict], dur: float, sr: int = AMT_SR,
     peak = np.abs(wave).max()
     if peak > 1.0:
         wave /= peak
+    return wave
+
+
+# ==================================================== pseudo-pop audio stems
+# Audio-domain stem renderers (JAX :312-419) for the pseudo-pop mixtures of
+# data/pseudopop.py: corpus MIDI supplies the musical content (piano / bass /
+# melody), synthetic drums ride the song's known beat grid, and a
+# vocal-formant lead carries the top line.
+
+
+def render_vocal(notes: List[Dict], dur: float, sr: int = 44100) -> np.ndarray:
+    """Monophonic formant-weighted lead with 5.5 Hz vibrato and soft
+    attack/release — a vocal-ish spectral envelope (bumps near 500/1600 Hz)
+    rather than the piano's geometric harmonic rolloff."""
+    wave = np.zeros(int(dur * sr) + 1, np.float32)
+    for note in notes:
+        f0 = 440.0 * 2.0 ** ((note["pitch"] - 69) / 12.0)
+        amp = 0.30 * note["velocity"] / 127.0
+        length = min(note["offset"] - note["onset"], dur - note["onset"])
+        if length <= 0.02:
+            continue
+        t = np.arange(int(length * sr)) / sr
+        vib = 1.0 + 0.006 * np.sin(2 * np.pi * 5.5 * t)
+        env = np.minimum(t / 0.04, 1.0) * np.minimum((length - t) / 0.08, 1.0)
+        env = np.clip(env, 0.0, 1.0)
+        sig = np.zeros_like(t)
+        phase = 2 * np.pi * f0 * np.cumsum(vib) / sr
+        for h in range(1, 11):
+            fh = f0 * h
+            if fh >= sr / 2:
+                break
+            formant = (np.exp(-0.5 * ((fh - 500.0) / 250.0) ** 2)
+                       + 0.7 * np.exp(-0.5 * ((fh - 1600.0) / 500.0) ** 2)
+                       + 0.08)
+            sig += formant * np.sin(phase * h)
+        i0 = int(note["onset"] * sr)
+        _add_seg(wave, i0, (amp * env * sig).astype(np.float32))
+    return wave
+
+
+def render_bass(notes: List[Dict], dur: float, sr: int = 44100) -> np.ndarray:
+    """Near-sinusoidal sustained bass (fundamental + soft 2nd/3rd harmonic,
+    mild tanh saturation) — spectrally disjoint from the piano stem."""
+    wave = np.zeros(int(dur * sr) + 1, np.float32)
+    for note in notes:
+        f0 = 440.0 * 2.0 ** ((note["pitch"] - 69) / 12.0)
+        amp = 0.35 * note["velocity"] / 127.0
+        length = min(note["offset"] - note["onset"], dur - note["onset"])
+        if length <= 0.02:
+            continue
+        t = np.arange(int(length * sr)) / sr
+        env = np.minimum(t / 0.01, 1.0) * np.exp(-t / max(length, 0.3))
+        sig = (np.sin(2 * np.pi * f0 * t)
+               + 0.35 * np.sin(2 * np.pi * 2 * f0 * t)
+               + 0.15 * np.sin(2 * np.pi * 3 * f0 * t))
+        sig = np.tanh(1.5 * sig)
+        i0 = int(note["onset"] * sr)
+        _add_seg(wave, i0, (amp * env * sig).astype(np.float32))
+    return wave
+
+
+def render_pad(notes: List[Dict], dur: float, sr: int = 44100) -> np.ndarray:
+    """Slow-attack sustained chord pad (1/h harmonic weights) — the
+    'guitar' slot's sustained mid-register texture."""
+    wave = np.zeros(int(dur * sr) + 1, np.float32)
+    for note in notes:
+        f0 = 440.0 * 2.0 ** ((note["pitch"] - 69) / 12.0)
+        amp = 0.16 * note["velocity"] / 127.0
+        length = min(note["offset"] - note["onset"], dur - note["onset"])
+        if length <= 0.05:
+            continue
+        t = np.arange(int(length * sr)) / sr
+        env = np.minimum(t / 0.12, 1.0) * np.clip(
+            (length - t) / 0.15, 0.0, 1.0)
+        sig = np.zeros_like(t)
+        for h in range(1, 9):
+            fh = f0 * h
+            if fh >= sr / 2:
+                break
+            sig += (1.0 / h) * np.sin(2 * np.pi * fh * t)
+        i0 = int(note["onset"] * sr)
+        _add_seg(wave, i0, (amp * env * sig).astype(np.float32))
+    return wave
+
+
+def render_drums(beat_times: np.ndarray, down_times: np.ndarray, dur: float,
+                 sr: int = 44100, seed: int = 0) -> np.ndarray:
+    """Kick on beats (pitch-swept sine), snare off-downbeat beats
+    (band-shaped noise), closed hats on 8ths (short high noise)."""
+    rng = np.random.default_rng(seed)
+    wave = np.zeros(int(dur * sr) + 1, np.float32)
+    downs = set(np.round(np.asarray(down_times, float), 3))
+
+    def add(t0: float, seg: np.ndarray) -> None:
+        _add_seg(wave, int(t0 * sr), seg)
+
+    beats = np.asarray(beat_times, float)
+    for i, b in enumerate(beats):
+        # Kick: 120→45 Hz sweep over 120 ms.
+        t = np.arange(int(0.12 * sr)) / sr
+        f_inst = 45.0 + 75.0 * np.exp(-t / 0.03)
+        kick = 0.8 * np.exp(-t / 0.05) * np.sin(
+            2 * np.pi * np.cumsum(f_inst) / sr)
+        add(b, kick.astype(np.float32))
+        # Snare on non-downbeat alternating beats.
+        if round(b, 3) not in downs and i % 2 == 1:
+            t = np.arange(int(0.09 * sr)) / sr
+            noise = rng.standard_normal(len(t)).astype(np.float32)
+            noise = np.diff(noise, prepend=0.0)       # high-pass tilt
+            noise = np.convolve(noise, np.ones(8) / 8, mode="same")  # band
+            body = 0.3 * np.exp(-t / 0.012) * np.sin(2 * np.pi * 190.0 * t)
+            add(b, (0.5 * np.exp(-t / 0.03) * noise + body).astype(np.float32))
+        # Hats on this beat and the following 8th.
+        step = (beats[i + 1] - b) / 2 if i + 1 < len(beats) else 0.25
+        for ht in (b, b + step):
+            t = np.arange(int(0.03 * sr)) / sr
+            noise = rng.standard_normal(len(t)).astype(np.float32)
+            noise = np.diff(np.diff(noise, prepend=0.0), prepend=0.0)
+            add(ht, (0.12 * np.exp(-t / 0.008) * noise).astype(np.float32))
     return wave
 
 

@@ -202,16 +202,125 @@ def test_cli_warm_starts_from_a_port_export(tmp_path, small):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["beat-corpus"], NotImplementedError),
-    (["amt-corpus"], NotImplementedError),
-    (["beat", "--scenes-dir", "scenes"], NotImplementedError),
-    (["separator", "--pseudopop-mix", "0.5"], NotImplementedError),
-    (["separator", "--pseudopop-cache", "cache"], NotImplementedError),
     (["beat", "--output-dir", str(REPO / "checkpoints" / "x")], ValueError),
 ])
 def test_cli_refuses_what_it_does_not_port(argv, error):
     with pytest.raises(error):
         train_aux.run([*argv, "--device", "cpu"])
+
+
+# ------------------------------------------------------- corpus modes (CLI)
+# Each mode's metadata keys beside the loop's (first_loss, final_loss,
+# steps, seconds), as the JAX script writes them (scripts/
+# train_aux_synthetic.py :194-229, :483-493, :694-707, :835-840).
+BEAT_CORPUS_KEYS = {"beat_f_corpus", "beat_f_corpus_octave", "beat_f_per_song",
+                    "beat_f_synthetic", "corpus", "corpus_frac", "train_song_versions",
+                    "eval_songs", "warm_start", "train_frames", "model"}
+AMT_CORPUS_KEYS = {"onset_f1_corpus", "onset_f1_per_song", "eval_seconds", "corpus",
+                   "corpus_frac", "train_songs", "eval_songs", "warm_start", "model"}
+BEAT_SCENES_KEYS = {"beat_f_measure", "corpus", "corpus_mix", "train_frames", "model",
+                    "beat_f_corpus", "beat_f_corpus_octave", "beat_f_per_song", "eval_songs"}
+SEPARATOR_KEYS = {"stem_sdr_db", "baseline_sdr_db", "corpus", "train_frames", "model"}
+CORPUS_CASES = {
+    "beat-corpus": (["beat-corpus", "--corpus-limit", "2"], "beat_detector", BEAT_CORPUS_KEYS,
+                    "rendered-corpus(serving-chain)+synthetic-scenes"),
+    "amt-corpus": (["amt-corpus"], "extractor", AMT_CORPUS_KEYS,
+                   "rendered-corpus(serving-chain)+synthetic"),
+    "beat-scenes": (["beat", "--scenes-dir", "{scenes}", "--corpus-mix", "0.5"],
+                    "beat_detector", BEAT_SCENES_KEYS, "synthetic-scenes + corpus-piano-scenes"),
+    "separator-pseudopop-mix": (["separator", "--pseudopop-mix", "0.5"], "separator",
+                                SEPARATOR_KEYS,
+                                "synthetic-stems + pseudo-pop audio stems (mix 0.50)"),
+    # With a cache the JAX script names no pseudo-pop rows in `corpus`.
+    "separator-pseudopop-cache": (["separator", "--pseudopop-mix", "0.5", "--pseudopop-cache",
+                                   "{cache}"], "separator", SEPARATOR_KEYS, "synthetic-stems"),
+}
+
+
+@pytest.fixture
+def corpus_cli(tmp_path, monkeypatch, small):
+    """A synthetic corpus at `corpus_render.CORPUS_ROOT`, scene and
+    pseudo-pop shards in the JAX scripts' formats, the corpus modes at the
+    narrow widths, and the serving models of their features and
+    evaluations (separator, BeatDetector, extractor) too."""
+    from etude_tpu_torch.data import beat_detector, corpus_render, extractor, separation
+    from etude_tpu_torch.tools.synthetic_corpus import write_corpus
+
+    write_corpus(tmp_path / "songs", n_songs=6, seconds=(20.0, 30.0), seed=0)
+    monkeypatch.setattr(corpus_render, "CORPUS_ROOT", tmp_path / "songs")
+    for name, model in (("beat-corpus", "beat"), ("amt-corpus", "amt")):
+        monkeypatch.setitem(train_aux.TASKS, name, functools.partial(
+            train_aux.TASKS[name], config=PORT_CONFIGS[model](**SMALL[model])))
+    monkeypatch.setattr(separation, "SeparatorConfig",
+                        lambda: sep.SeparatorConfig(**SMALL["separator"]))
+    monkeypatch.setattr(beat_detector, "beat_model_config_from",
+                        lambda config: bt.BeatTransformerConfig(**SMALL["beat"]))
+    monkeypatch.setattr(extractor, "amt_config_from",
+                        lambda config, n_frame=None: amt.AMTConfig(**SMALL["amt"]))
+    # Two intra-op threads: the models are narrow, and a CPU shared by
+    # several test workers loses more to contending threads than it gains.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    rng = np.random.default_rng(0)
+    (tmp_path / "scenes").mkdir()
+    np.savez_compressed(tmp_path / "scenes" / "shard_0000.npz",
+                        x=rng.uniform(-80, 0, (3, 5, 512, 128)).astype(np.float16),
+                        activations=rng.uniform(0, 1, (3, 512, 2)).astype(np.float16),
+                        tempo=rng.integers(0, 300, 3).astype(np.int32))
+    (tmp_path / "cache").mkdir()
+    np.savez_compressed(tmp_path / "cache" / "shard_0000.npz",
+                        mix_mag=rng.uniform(0, 3, (3, 256, 2049)).astype(np.float16),
+                        stem_mags=rng.uniform(0, 1, (3, 5, 256, 2049)).astype(np.float16))
+    yield tmp_path
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("case", list(CORPUS_CASES))
+def test_cli_runs_the_corpus_modes(case, corpus_cli):
+    """Each corpus mode and option trains on the synthetic corpus and writes
+    an export whose metadata.json has the JAX script's keys, with finite
+    values; the corpus modes warm-start from the run's own export when it
+    is there; nothing is written under checkpoints/."""
+    argv, export, keys, corpus = CORPUS_CASES[case]
+    argv = [a.format(scenes=corpus_cli / "scenes", cache=corpus_cli / "cache") for a in argv]
+    out = corpus_cli / "out"
+    name = argv[0]
+    warm = None
+    if name == "amt-corpus":
+        warm = out / "extractor" / "latest"
+        save_aux_params(warm, init_amt_params_np(amt.AMTConfig(**SMALL["amt"]), seed=5))
+    if name in ("beat", "beat-corpus"):
+        save_aux_params(out / "separator" / "latest",
+                        init_separator_params_np(sep.SeparatorConfig(**SMALL["separator"]), 5))
+    checkpoints = sorted((REPO / "checkpoints").rglob("*"))
+    runs = train_aux.run([*argv, "--device", "cpu", "--steps", "2", "--batch", "2",
+                          "--eval-clips", "1", "--beat-frames", "40", "--eval-seconds", "12",
+                          "--output-dir", str(out)])
+    assert [r.name for r in runs] == [name] and runs[0].export == out / export / "latest"
+    assert len(runs[0].losses) == 2 and all(np.isfinite(runs[0].losses))
+    meta = json.loads((out / export / "metadata.json").read_text())
+    assert set(meta) == {"first_loss", "final_loss", "steps", "seconds"} | keys
+    assert meta["corpus"] == corpus and meta["steps"] == 2
+    for key, value in meta.items():
+        if isinstance(value, float):
+            assert np.isfinite(value), key
+    if name in ("beat-corpus", "amt-corpus"):
+        assert meta["warm_start"] == (str(warm) if warm else None)
+    if "eval_songs" in keys:
+        held_out = ["CPOP01"] if name == "beat-corpus" else ["CPOP01", "CPOP04"]
+        assert meta["eval_songs"] == held_out
+    if name == "beat-corpus":
+        assert meta["train_song_versions"] == 4
+        assert sorted(meta["beat_f_per_song"]) == ["CPOP01"]
+        assert len(list((out / "beat_corpus_cache").glob("*.npz"))) == 4
+    if name == "amt-corpus":
+        assert meta["train_songs"] == 4 and sorted(meta["onset_f1_per_song"]) == meta["eval_songs"]
+    fn, model = {"beat_detector": (beat_transformer_from_jax, "beat"),
+                 "extractor": (amt_from_jax, "amt"),
+                 "separator": (separator_from_jax, "separator")}[export]
+    loaded = fn(load_params_only(out / export / "latest"), PORT_CONFIGS[model](**SMALL[model]))
+    assert all(torch.isfinite(p).all() for p in loaded.parameters())
+    assert sorted((REPO / "checkpoints").rglob("*")) == checkpoints
 
 
 def test_cli_refuses_an_orbax_warm_start(tmp_path):
