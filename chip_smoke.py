@@ -111,7 +111,10 @@ Phases, each announced with a flushed line when it starts and ends:
                     equal up to near-ties (counted), K1 launches = S = 1
                     chunks x layers; `infer --decode-only --sweep` batched
                     on one card (the engine gets no devices; 27 MIDI
-                    files). With two or more cards, also the mesh step
+                    files); each op of the training step run twice at the
+                    distill micro-batch's shapes, the ops whose backward
+                    differs run to run, by default and under deterministic
+                    algorithms. With two or more cards, also the mesh step
                     over every card against one card for 8 steps of real
                     learning (losses and gradient norms within measured
                     limits; control: the gradients' all-reduce skipped),
@@ -165,7 +168,29 @@ Phases, each announced with a flushed line when it starts and ends:
                     card bf16 against CPU f32, within aux_train's limit
                     (control: the labels shifted); the wall of each stage
                     and the render's seconds per audio second
- 15. recipe         the decoder's recipe through the scripts, at full width:
+ 15. decoder_corpus the decoder-corpus scripts in-process on a synthetic
+                    corpus of DC_SONGS songs of 20-25 s from seed 0, each
+                    timed with its K1 and K2 launches counted from 0 (K2 = 9
+                    per Beat-Transformer forward), its outputs holding the
+                    JAX scripts' keys and its MIDIs parsing:
+                    `distill_dataset --grid rgc` with DC_AUGMENT on the card
+                    and on the CPU, equal bit for bit, and `--grid tracker`
+                    from the aux_train phase's exports (the songs that picked
+                    the tracker); `TrackerGrid` on one song card vs CPU
+                    (published widths, seed 0's weights): the refined
+                    downbeats within DC_DOWNBEAT_ATOL and the same grid
+                    picked (control: the audio one activation frame later);
+                    `eval_distilled --engine rebuild --teacher-forced-history`
+                    on DC_EVAL_SONGS songs from the train phase's run (K1 =
+                    S = 1 steps x 8), the device's idle share on a window of
+                    it, and its first song's bars against the CPU's, each
+                    equal or first differing at a near-tie (TIE_MARGIN);
+                    `eval_engine_parity`; `sweep_sampling` (2 songs, T 0 and
+                    0.7) and `eval_full_pipeline` (1 song) under seed 0's
+                    extractor, separator and beat model with the run's
+                    decoder; `validate_wpd_audio_path` (2 songs) and
+                    `diagnose_wpd_outliers` (one song, its three ablations)
+ 16. recipe         the decoder's recipe through the scripts, at full width:
                     `dagger_rollouts --batch 16` in-process on 16 corpus
                     songs cut to 6 bars, from the train phase's export
                     (wall, tok/s, K1 launches = the engine's S = 1 chunks
@@ -193,7 +218,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     `separate_features` bit for bit (control: another
                     seed's track); `entry()` on the card, bf16 vs the
                     CPU's f32 (control: one layer's attention zeroed)
- 16. options        the serving CLI's other options, each check beside a
+ 17. options        the serving CLI's other options, each check beside a
                     control it must catch: `--decode-only --engine rebuild`
                     on the cli phase's work dir (K1 launches = the S = 1
                     steps counted from outside the engine x 8 layers; the
@@ -218,7 +243,7 @@ Phases, each announced with a flushed line when it starts and ends:
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
 serving, structuralize, pipeline, prepare, cli, train, multigpu, aux_train,
-corpus, recipe and options runs,
+corpus, decoder_corpus, recipe and options runs,
 each counted from 0 (K2b's: the aux_train and corpus phases' beat runs'), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
 raises and exits non-zero with no result line; so does a machine without
@@ -397,6 +422,22 @@ REMAP_TOKENS = 256
 # margin that a greedy divergence between the split and the one-device
 # sweep must fall under (tests/test_torch_generate_stream.py TIE_MARGIN).
 MESH_STEPS, SWEEP_BARS, SWEEP_TOKENS, DP_CLI_STEPS = 3, 4, 64, 10
+# The decoder_corpus phase: a synthetic corpus of DC_SONGS songs from seed
+# 0; distill_dataset's augmentations; the tracker's card-vs-CPU song, the
+# beat activations' frame (44.1 kHz / 1024) and the refined downbeats'
+# limit, half a frame (the DBN lands beats on frames; the least-squares fit
+# over a region's downbeats averages a flipped frame away); eval_distilled's
+# and eval_engine_parity's songs; the pipeline scripts' song length.
+DC_SONGS, DC_SECONDS = 4, (20.0, 25.0)
+DC_AUGMENT = ["--transpose", "1", "--phase-shifts", "1", "--double-time"]
+DC_TRACKER_SONG, DC_FRAME = "CPOP01", 1024 / 44100
+DC_DOWNBEAT_ATOL = DC_FRAME / 2
+DC_EVAL_SONGS, DC_PIPELINE_SECONDS, DC_IDLE_BARS = 2, 20.0, 1
+# The JAX scripts' output keys.
+DC_EVAL_KEYS = {"songs", "mean_rgc", "mean_ipe", "mean_onset_f1_vs_target", "mean_notes",
+                "oracle_attrs", "predicted_attrs", "temperature", "engine"}
+DC_PARITY_KEYS = {"songs", "mean_cross_f1", "mean_rgc_rebuild", "mean_rgc_stream",
+                  "mean_ipe_rebuild", "mean_ipe_stream", "temperature", "seed", "rows"}
 TIE_MARGIN = 1.75e-2
 # The mesh step over N cards against one card: MESH_LEARN_STEPS steps of the
 # distill batch from seed 0's weights at rate 2e-4 after one warmup step
@@ -2657,6 +2698,381 @@ def corpus_phase(root: Path, exports: Path, device_ms):
     return k2, k2b
 
 
+# ---------------------------------------------------------------- decoder_corpus
+def dc_stage(walls, name, run):
+    """One script of the decoder_corpus phase with K1, K2 and the
+    Beat-Transformer forwards counted from 0 (K2 = 9 per forward, held by
+    corpus_stage); returns (its result, K1, K2)."""
+    from etude_tpu_torch.ops.decode_attention import decode_attention
+
+    decode_attention.launches = 0
+    out, k2, _ = corpus_stage(walls, name, run)
+    say(f"  [{name}] K1 launches {decode_attention.launches}")
+    return out, decode_attention.launches, k2
+
+
+def dc_printed(run):
+    """`run()`'s exit code and the JSON object its last stdout line holds."""
+    import io
+
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        rc = run()
+    lines = buffer.getvalue().strip().splitlines()
+    return rc, json.loads(lines[-1]) if lines else None
+
+
+def dc_keys(name, got, want):
+    if set(got) != set(want):
+        raise RuntimeError(f"{name}: keys {sorted(got)}, the JAX script's {sorted(want)}")
+
+
+def dc_midis(name, paths) -> int:
+    """Every MIDI in `paths` parses; returns their notes."""
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    paths = list(paths)
+    if not paths:
+        raise RuntimeError(f"{name}: no MIDI written")
+    return sum(len(read_midi_notes(p)) for p in paths)
+
+
+def dc_distill(root, walls, songs, exports):
+    """distill_dataset: --grid rgc on the card and the CPU (bit-equal), then
+    --grid tracker on the card from the exports, with the songs that picked
+    the tracker; returns (its output dir, K2)."""
+    import numpy as np
+    from etude_tpu_torch.scripts import distill_dataset as dd
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    base = ["--corpus", str(songs), *DC_AUGMENT]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = root / f"rgc_{device}"
+        rc, _, _ = dc_stage(walls, f"distill_dataset rgc {device}", lambda: dd.main(
+            [*base, "--grid", "rgc", "--out", str(outs[device]), "--device", device]))
+        if rc != 0:
+            raise RuntimeError(f"distill_dataset --grid rgc --device {device} exited {rc}")
+    files = sorted(p.relative_to(outs["cuda"]) for p in outs["cuda"].rglob("*") if p.is_file())
+    other = sorted(p.relative_to(outs["cpu"]) for p in outs["cpu"].rglob("*") if p.is_file())
+    differ = [f for f in files if (outs["cuda"] / f).read_bytes() != (outs["cpu"] / f).read_bytes()]
+    pairs = sum(f.name.endswith("_src.npy") for f in files)
+    say(f"  --grid rgc {' '.join(DC_AUGMENT)}: {pairs} pairs; card vs CPU: "
+        f"{len(files)} files, {len(differ)} differ")
+    if files != other or differ or pairs != DC_SONGS * 3 * 3 or Path("vocab.json") not in files:
+        raise RuntimeError(f"distill_dataset rgc: card vs CPU files differ: {differ}")
+
+    tracker = root / "tracker"
+    models = ["--separator-model", str(exports / "separator" / "latest"),
+              "--beat-model", str(exports / "beat_detector" / "latest")]
+    rc, _, k2 = dc_stage(walls, "distill_dataset tracker", lambda: dd.main(
+        [*base, "--grid", "tracker", "--out", str(tracker), *models]))
+    if rc != 0 or k2 != 9 * DC_SONGS:
+        raise RuntimeError(f"distill_dataset --grid tracker exited {rc}, K2 {k2}")
+    picked = []
+    for song in sorted(p for p in songs.iterdir() if p.is_dir()):
+        cached = json.loads((tracker / "tempo" / f"{song.name}.json").read_text())
+        if set(cached) != {"tempo", "score"}:
+            raise RuntimeError(f"{song.name}: tempo cache keys {sorted(cached)}")
+        notes = read_midi_notes(song / "etude_d.mid")
+        rgc = dd.estimate_tempo_grid(notes)
+        score = np.inf if cached["score"] is None else cached["score"]
+        if dd.arbitrate_grid(cached["tempo"], score, rgc, dd.grid_fit_score(notes, rgc))[1] \
+                == "tracker":
+            picked.append(song.name)
+        say(f"    {song.name}: tracker regions {len(cached['tempo'])}, snap "
+            f"{cached['score']} vs rgc {dd.grid_fit_score(notes, rgc):.5f}")
+    pairs = sum(1 for _ in (tracker / "tokenized").glob("*/*_src.npy"))
+    say(f"  --grid tracker: {len(picked)} of {DC_SONGS} songs picked the tracker "
+        f"({', '.join(picked) or 'none'}); {pairs} pairs")
+    return tracker, k2
+
+
+def dc_tracker_parity(root, walls, songs):
+    """TrackerGrid on one song, card against the port's CPU, at the
+    published widths under seed 0's random weights (the aux_train phase's
+    30-step beat export predicts no downbeat on these renders, so its grid
+    is empty on both): the tracker's refined downbeats (before the phase
+    moves onto the notes) within DC_DOWNBEAT_ATOL, the same grid picked;
+    control: the notes (so the audio) one activation frame later on the
+    card."""
+    import numpy as np
+    from etude_tpu_torch.scripts import distill_dataset as dd
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    notes = read_midi_notes(songs / DC_TRACKER_SONG / "etude_d.mid")
+    later = [dict(n, onset=n["onset"] + DC_FRAME, offset=n["offset"] + DC_FRAME) for n in notes]
+    grids = {}
+    for device in ("cpu", "cuda"):
+        t = time.perf_counter()
+        grid = dd.TrackerGrid(root / "no_separator.ckpt", root / "no_beat.ckpt", device)
+        grids[device] = grid.track(notes, root / f"parity_{device}.wav")
+        walls[f"TrackerGrid {device}"] = time.perf_counter() - t
+        if device == "cuda":
+            shifted = grid.track(later, root / "parity_later.wav")
+
+    def gap(a, b):
+        if len(a) != len(b) or any(x["time_sig"] != y["time_sig"]
+                                   or len(x["downbeats"]) != len(y["downbeats"])
+                                   for x, y in zip(a, b)):
+            return np.inf
+        return max((float(np.max(np.abs(np.subtract(x["downbeats"], y["downbeats"]))))
+                    for x, y in zip(a, b)), default=0.0)
+
+    rgc = dd.estimate_tempo_grid(notes)
+    rgc_score = dd.grid_fit_score(notes, rgc)
+    picks = {}
+    for device, tempo in grids.items():
+        final = dd.TrackerGrid._dephase(tempo, notes)
+        picks[device] = dd.arbitrate_grid(final, dd.grid_fit_score(notes, final), rgc,
+                                          rgc_score)[1]
+    found, control = gap(grids["cuda"], grids["cpu"]), gap(shifted, grids["cpu"])
+    say(f"  TrackerGrid on {DC_TRACKER_SONG}, card vs CPU: regions {len(grids['cuda'])} / "
+        f"{len(grids['cpu'])}, downbeats {[len(r['downbeats']) for r in grids['cuda']]}, "
+        f"largest downbeat gap {found:.4g} s (limit {DC_DOWNBEAT_ATOL:.4g}); picked "
+        f"{picks['cuda']} / {picks['cpu']}; control, the audio {1e3 * DC_FRAME:.1f} ms later: "
+        f"gap {control:.4g} s")
+    if not grids["cpu"]:
+        raise RuntimeError(f"the tracker found no region on {DC_TRACKER_SONG}")
+    if found > DC_DOWNBEAT_ATOL or picks["cuda"] != picks["cpu"]:
+        raise RuntimeError(f"TrackerGrid card vs CPU: gap {found}, picks {picks}")
+    if control <= DC_DOWNBEAT_ATOL:
+        raise RuntimeError("the tracker check missed its control (the audio a frame later)")
+
+
+def dc_teacher_forced(root, walls, songs, data, run_dir, vocab):
+    """eval_distilled --engine rebuild --teacher-forced-history, greedy, on
+    DC_EVAL_SONGS songs on the card (timed, then profiled for the device's
+    idle share) and the first on the CPU: bars equal or first differing at
+    a near-tie of the CPU's logits. Returns the card run's K1."""
+    import numpy as np
+    import torch
+    from etude_tpu_torch.models import generate
+    from etude_tpu_torch.scripts import eval_distilled
+
+    argv = ["--run", str(run_dir), "--vocab", str(vocab), "--corpus", str(songs),
+            "--dataset-dir", str(data), "--engine", "rebuild", "--teacher-forced-history"]
+    card, k1, _ = dc_stage(walls, "eval_distilled", lambda: eval_distilled.run(
+        [*argv, "--songs", str(DC_EVAL_SONGS), "--out", str(root / "eval")]))
+    if card is None:
+        raise RuntimeError("eval_distilled exited 1")
+    steps = card.engine_stats["single_token_steps"]
+    if card.agg["songs"] != DC_EVAL_SONGS or k1 != 8 * steps or not steps:
+        raise RuntimeError(f"eval_distilled: {card.agg}, K1 {k1}, {steps} steps")
+    dc_keys("eval_distilled", card.agg, DC_EVAL_KEYS)
+    notes = dc_midis("eval_distilled", (root / "eval").glob("*_ours.mid"))
+    say(f"  eval_distilled: {json.dumps(card.agg)}; {notes} notes; {steps} S=1 steps, "
+        f"{1e3 * walls['eval_distilled'] / steps:.3f} ms of the script's wall each")
+    dc_idle_share(run_dir, vocab, card.songs[0])
+
+    margins, sample = [], generate.sample_token
+
+    def recorded(logits, *args, **kw):
+        top2 = logits.float().topk(2, dim=-1).values
+        margins.append(float(top2[0, 0] - top2[0, 1]))
+        return sample(logits, *args, **kw)
+
+    generate.sample_token = recorded
+    try:
+        t = time.perf_counter()
+        host = eval_distilled.run([*argv, "--songs", "1", "--out", str(root / "eval_cpu"),
+                                   "--device", "cpu"])
+        walls["eval_distilled cpu"] = time.perf_counter() - t
+    finally:
+        generate.sample_token = sample
+    ours, ref = card.songs[0]["generated"], host.songs[0]["generated"]
+    if len(ours) != len(ref) or host.engine_stats["single_token_steps"] != len(margins):
+        raise RuntimeError(f"teacher-forced bars {len(ours)} vs {len(ref)}, {len(margins)} "
+                           f"margins for {host.engine_stats['single_token_steps']} steps")
+    starts = np.cumsum([0] + [len(b) - 1 for b in ref])
+    equal, at = 0, []
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        if a == b:
+            equal += 1
+            continue
+        t = next((t for t, (x, y) in enumerate(zip(a[1:], b[1:])) if x != y),
+                 min(len(a), len(b)) - 1)
+        at.append(margins[starts[i] + t])
+    say(f"  teacher-forced bars of {card.songs[0]['name']}, card vs CPU: {equal} of {len(ref)} "
+        f"equal; top-2 margins at the first differing token "
+        f"{[round(m, 5) for m in at]} (near-tie limit {TIE_MARGIN}); CPU run "
+        f"{walls['eval_distilled cpu']:.2f} s")
+    if any(m >= TIE_MARGIN for m in at):
+        raise RuntimeError(f"a teacher-forced bar differs past a near-tie: {at}")
+    torch.cuda.empty_cache()
+    return k1
+
+
+def dc_idle_share(run_dir, vocab, song) -> None:
+    """The device's idle share of eval_distilled's work, on a window of it:
+    the first DC_IDLE_BARS bars of `song` through the script's engine
+    (rebuild, a 512-token prompt bucket, 64-token bars, teacher-forced
+    history), its unprofiled warm wall against its device time under
+    torch.profiler (a whole run's million events take the profiler minutes
+    to list; `device_busy_us`)."""
+    from etude_tpu_torch.data.vocab import Vocab
+    from etude_tpu_torch.models.generate import GenerationEngine
+    from etude_tpu_torch.scripts.eval_distilled import load_decoder
+
+    model, config = load_decoder(run_dir, "cuda")
+    vocab = Vocab.load(vocab)
+    engine = GenerationEngine(config, vocab.bar_bos_id, vocab.bar_eos_id, pad_id=vocab.pad_id,
+                              prompt_buckets=(512,), max_bar_token_limit=64)
+
+    def run():
+        n = DC_IDLE_BARS
+        engine.generate_batch(model, [song["src_bars"][:n]], [song["per_bar"][:n]],
+                              forced_history_y=[song["tgt_bars"][:n]])
+
+    engine.stats["single_token_steps"] = 0
+    wall = warm_wall(run)
+    steps = engine.stats["single_token_steps"] // 2
+    device_us = device_busy_us(run)
+    if device_us <= 0:
+        say("  eval_distilled idle share: not measured (the profiler saw no device time)")
+        return
+    say(f"  eval_distilled, a window of {DC_IDLE_BARS} bars ({steps} S=1 steps): warm wall "
+        f"{1e3 * wall:.2f} ms, device busy {device_us / 1e3:.2f} ms -> device idle share "
+        f"{1 - device_us / 1e6 / wall:.3f}")
+
+
+def device_busy_us(run) -> float:
+    """The device time of one call of `run` in us: its kernels' and copies'
+    durations under torch.profiler, device activity only and read from the
+    raw trace (listing a window's host events costs the profiler tens of
+    seconds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e3
+
+
+def dc_pipeline_settings(root, run_dir) -> Path:
+    """Settings for sweep_sampling and eval_full_pipeline: the train phase's
+    decoder; the extractor, separator and beat model at the published widths
+    under seed 0's random weights (the aux_train phase's 30-step beat export
+    predicts no downbeat on these renders, and without a grid there is
+    nothing to decode), the extractor at PREP_THRESHOLDS (the published ones
+    keep no note of random weights); 64-token bars."""
+    settings = root / "settings.json"
+    settings.write_text(json.dumps({
+        "paths": {"extractor_model": str(root / "no_extractor.ckpt"),
+                  "separator_model": str(root / "no_separator.ckpt"),
+                  "beat_detector_model": str(root / "no_beat.ckpt"),
+                  "decoder_model": str(run_dir / "model"),
+                  "decoder_config": str(run_dir / "etude_decoder_config.json"),
+                  "decoder_vocab": str(run_dir / "vocab.json")},
+        "extractor": PREP_THRESHOLDS["extractor"],
+        "decoder": {"max_bar_token_limit": 64}}))
+    return settings
+
+
+def dc_engine_parity(root, walls, songs, data, run_dir, vocab) -> int:
+    """eval_engine_parity on DC_EVAL_SONGS songs, greedy; returns its K1."""
+    from etude_tpu_torch.scripts import eval_engine_parity
+
+    argv = ["--run", str(run_dir), "--vocab", str(vocab), "--corpus", str(songs),
+            "--dataset-dir", str(data), "--songs", str(DC_EVAL_SONGS),
+            "--out", str(root / "parity")]
+    (rc, parity), k1, _ = dc_stage(walls, "eval_engine_parity", lambda: dc_printed(
+        lambda: eval_engine_parity.main(argv)))
+    dc_keys("eval_engine_parity", parity, DC_PARITY_KEYS)
+    notes = dc_midis("eval_engine_parity", (root / "parity").glob("*/*_ours.mid"))
+    say(f"  eval_engine_parity: songs {parity['songs']}, cross F1 {parity['mean_cross_f1']}, "
+        f"RGC {parity['mean_rgc_rebuild']} / {parity['mean_rgc_stream']}, IPE "
+        f"{parity['mean_ipe_rebuild']} / {parity['mean_ipe_stream']}; {notes} notes")
+    if rc != 0 or parity["songs"] != DC_EVAL_SONGS or not k1:
+        raise RuntimeError(f"eval_engine_parity exited {rc}: {parity}, K1 {k1}")
+    return k1
+
+
+def dc_pipeline(root, walls, songs, run_dir):
+    """sweep_sampling (2 songs, --temps 0 0.7, one seed) and
+    eval_full_pipeline (1 song), DC_PIPELINE_SECONDS each; returns (K1,
+    K2)."""
+    from etude_tpu_torch.scripts import eval_full_pipeline, sweep_sampling
+
+    settings = dc_pipeline_settings(root, run_dir)
+    models = ["--config", str(settings), "--allow-random-weights", "--corpus", str(songs),
+              "--seconds", str(DC_PIPELINE_SECONDS)]
+    sweep_out = root / "sweep.json"
+    (rc, results), k1, k2 = dc_stage(walls, "sweep_sampling", lambda: dc_printed(
+        lambda: sweep_sampling.main([*models, "--songs", "2", "--temps", "0", "0.7",
+                                     "--seeds", "1", "--cache", str(root / "sweep_cache"),
+                                     "--out", str(sweep_out)])))
+    payload = json.loads(sweep_out.read_text())
+    dc_keys("sweep_sampling", payload, {"songs", "seconds", "attrs", "refs", "results"})
+    notes = dc_midis("sweep_sampling", (root / "sweep_cache").glob("*/T*.mid"))
+    say(f"  sweep_sampling: {json.dumps(results)}; refs {json.dumps(payload['refs'])}; "
+        f"{notes} notes")
+    if rc != 0 or [r["temperature"] for r in results] != [0.0, 0.7] or k2 != 9 * 2 or not k1 \
+            or any(set(r) != {"temperature", "top_p", "rgc", "ipe", "seeds"} for r in results):
+        raise RuntimeError(f"sweep_sampling exited {rc}: {results}, K1 {k1}, K2 {k2}")
+
+    (rc, full), a, b = dc_stage(walls, "eval_full_pipeline", lambda: dc_printed(
+        lambda: eval_full_pipeline.main([*models, "--songs", "1",
+                                         "--out", str(root / "full")])))
+    dc_keys("eval_full_pipeline", full, {"songs", "song_seconds", "engine", "mean_wall_s",
+                                         "rgc", "ipe", "rows"})
+    notes = dc_midis("eval_full_pipeline", (root / "full").glob("*/out/ours.mid"))
+    say(f"  eval_full_pipeline: wall {full['mean_wall_s']} s, RGC {json.dumps(full['rgc'])}, "
+        f"IPE {json.dumps(full['ipe'])}; {notes} notes")
+    if rc != 0 or full["songs"] != 1 or b != 9 or not a:
+        raise RuntimeError(f"eval_full_pipeline exited {rc}: {full}, K1 {a}, K2 {b}")
+    return k1 + a, k2 + b
+
+
+def dc_wpd(root, walls, songs) -> None:
+    """validate_wpd_audio_path on 2 songs; diagnose_wpd_outliers on one
+    with its three ablations."""
+    from etude_tpu_torch.scripts import diagnose_wpd_outliers, validate_wpd_audio_path
+
+    (rc, wpd), _, _ = dc_stage(walls, "validate_wpd_audio_path", lambda: dc_printed(
+        lambda: validate_wpd_audio_path.main(["--songs", "2", "--corpus", str(songs)])))
+    dc_keys("validate_wpd_audio_path", wpd, {"songs", "mean_abs_delta", "max_abs_delta"})
+    say(f"  validate_wpd_audio_path: {json.dumps(wpd)}")
+    if rc != 0 or len(wpd["songs"]) != 2 or wpd["max_abs_delta"] is None:
+        raise RuntimeError(f"validate_wpd_audio_path exited {rc}: {wpd}")
+
+    out = root / "wpd_outliers.json"
+    (rc, report), _, _ = dc_stage(walls, "diagnose_wpd_outliers", lambda: dc_printed(
+        lambda: diagnose_wpd_outliers.main(["--songs", DC_TRACKER_SONG, "--ablate-song",
+                                            DC_TRACKER_SONG, "--corpus", str(songs),
+                                            "--out", str(out)])))
+    dc_keys("diagnose_wpd_outliers", report, {"songs", "ablations"})
+    say(f"  diagnose_wpd_outliers: {json.dumps(report)}")
+    if rc != 0 or report != json.loads(out.read_text()) or set(report["ablations"]) != {
+            "alpha=0.2", "alpha=0.8", "no_tuning"} or "error" in json.dumps(report):
+        raise RuntimeError(f"diagnose_wpd_outliers exited {rc}: {report}")
+
+
+def decoder_corpus_phase(root: Path, exports: Path, run_dir: Path):
+    """The decoder_corpus phase, from the aux_train phase's separator and
+    beat exports and the train phase's decoder run; returns its (K1, K2)
+    launches."""
+    from etude_tpu_torch.tools.synthetic_corpus import write_corpus
+
+    walls = {}
+    songs = root / "songs"
+    write_corpus(songs, DC_SONGS, DC_SECONDS, seed=0)
+    vocab = ROOT / "dataset_distill" / "vocab.json"
+    data, k2 = dc_distill(root, walls, songs, exports)
+    dc_tracker_parity(root, walls, songs)
+    k1 = dc_teacher_forced(root, walls, songs, data, run_dir, vocab)
+    k1 += dc_engine_parity(root, walls, songs, data, run_dir, vocab)
+    a, b = dc_pipeline(root, walls, songs, run_dir)
+    dc_wpd(root, walls, songs)
+    k1, k2 = k1 + a, k2 + b
+    say("  decoder_corpus walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; K1 launches {k1}, K2 launches {k2}")
+    return k1, k2
+
+
 # ---------------------------------------------------------------- recipe
 def recipe_dataset(root: Path) -> Path:
     """RECIPE_SONGS corpus songs, every RECIPE_STRIDE-th with at least
@@ -3627,6 +4043,91 @@ def deterministic():
             torch.use_deterministic_algorithms(False)
 
 
+def nondeterministic_ops(config) -> None:
+    """Each op of the decoder's training step at the distill micro-batch's
+    shapes (8 x 1024 positions, the config's widths), forward and backward
+    twice on the same inputs and a random output gradient: the ops whose
+    input gradients differ between the two, by default and under torch's
+    deterministic algorithms (which warn of no op here); then the same for
+    the whole decoder, by parameter."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, T, H, V = 8, 1024, config.hidden_size, config.vocab_size
+    n_heads, D = config.num_attention_heads, config.head_dim
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype).requires_grad_()
+
+    ids = torch.randint(0, V, (B, T), generator=g, device="cuda")
+    bins = torch.randint(0, 3, (B, T), generator=g, device="cuda")
+    labels = torch.randint(0, V, (B, T, 1), generator=g, device="cuda")
+    bf16 = torch.bfloat16
+    cases = {
+        "embedding (word, V rows)": (lambda w: F.embedding(ids, w), [rand(V, H)]),
+        "embedding (3 rows: class, attribute)": (lambda w: F.embedding(bins, w),
+                                                  [rand(3, H)]),
+        "linear bf16 with bias (qkv)": (lambda x, w, b: F.linear(x, w, b),
+                                        [rand(B, T, H, dtype=bf16), rand(3 * H, H, dtype=bf16),
+                                         rand(3 * H, dtype=bf16)]),
+        "linear f32 (lm head)": (lambda x, w: F.linear(x, w), [rand(B, T, H), rand(V, H)]),
+        "layer_norm f32": (lambda x, w, b: F.layer_norm(x, (H,), w, b),
+                           [rand(B, T, H), rand(H), rand(H)]),
+        "einsum QK^T f32": (lambda q, k: torch.einsum("bqhd,bkhd->bhqk", q, k),
+                            [rand(B, T, n_heads, D), rand(B, T, n_heads, D)]),
+        "einsum PV bf16": (lambda p, v: torch.einsum("bhqk,bkhd->bqhd", p, v),
+                           [rand(B, n_heads, T, T, dtype=bf16), rand(B, T, n_heads, D,
+                                                                     dtype=bf16)]),
+        "log_softmax + gather": (lambda x: torch.log_softmax(x, -1).gather(-1, labels),
+                                 [rand(B, T, V)]),
+    }
+
+    def differing():
+        out = []
+        for name, (fn, leaves) in cases.items():
+            gy = torch.randn(fn(*leaves).shape, generator=g, device="cuda")
+            grads = [torch.autograd.grad(fn(*leaves), leaves, gy.to(leaves[0].dtype))
+                     for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*grads)):
+                out.append(name)
+        return out
+
+    plain = differing()
+    with deterministic() as caught:
+        flagged = differing()
+    say(f"  ops of the training step whose backward differs between two identical runs: "
+        f"{plain}; under deterministic algorithms: {flagged} (warnings: {len(caught)})")
+
+    # The whole forward and backward of the decoder (seed 0's weights) on
+    # one such micro-batch, twice: the parameters whose gradients differ.
+    from etude_tpu_torch.models.decoder import ATTRIBUTE_ORDER, loss_fn
+    from etude_tpu_torch.weights import decoder_from_jax, init_decoder_params_np
+
+    model = decoder_from_jax(init_decoder_params_np(config, seed=0), config, "cuda")
+    model.requires_grad_(True)
+    batch = {"input_ids": ids, "class_ids": bins % 2 + 1, "labels": labels[..., 0],
+             "attention_mask": torch.ones_like(ids),
+             **{f"{name}_bin_ids": bins for name in ATTRIBUTE_ORDER}}
+
+    def step_grads():
+        out = []
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, batch, torch.bfloat16)
+            loss.backward()
+            out.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        return [n for n in out[0] if not torch.equal(out[0][n], out[1][n])]
+
+    plain = step_grads()
+    with deterministic():
+        flagged = step_grads()
+    say(f"  the decoder's whole backward twice: {len(plain)} of "
+        f"{len(list(model.parameters()))} parameters' gradients differ ({plain[:6]}"
+        f"{' ...' if len(plain) > 6 else ''}); under deterministic algorithms {len(flagged)} "
+        f"({flagged[:6]})")
+
+
 def mesh_parity(root: Path, config, hosts):
     """An NCCL world of one: the FSDP state (its parameters gathered and its
     gradients reduce-scattered over the group, its norm from per-parameter
@@ -3680,6 +4181,7 @@ def mesh_parity(root: Path, config, hosts):
             mesh_checks(root, config, mesh, batches, run)
         ops = sorted({str(w.message).split(" does not have")[0][:80] for w in caught})
         say(f"  under deterministic algorithms; warned ops without a deterministic form: {ops}")
+        nondeterministic_ops(config)
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
@@ -4226,6 +4728,11 @@ def main() -> int:
             corpus_k2, corpus_k2b = corpus_phase(tmp / "corpus", exports, device_ms)
             k2_launches += corpus_k2
             k2b_launches += corpus_k2b
+
+        with phase("decoder_corpus"):
+            k1, k2 = decoder_corpus_phase(tmp / "decoder_corpus", exports, trained)
+            launches += k1
+            k2_launches += k2
 
         with phase("recipe"):
             launches += recipe_phase(tmp / "recipe", trained, separator, tmp / "cli")

@@ -223,10 +223,15 @@ class GenerationEngine:
         max_output_tokens: int = 25600,
         seed: int = 0,
         progress: bool = False,
+        forced_history_y: Optional[List[List[List[int]]]] = None,
     ) -> List[List[List[int]]]:
         """N independent streams in lockstep, on the model's device (JAX
         :283). Streams may have different bar counts; an exhausted stream
-        decodes an empty condition bar and its output is discarded."""
+        decodes an empty condition bar and its output is discarded.
+
+        `forced_history_y` (teacher-forced history): per stream, the true
+        target bars; after bar i the history takes the true Y_i, where the
+        stream has one, instead of the generated bar (JAX :367-371)."""
         B = len(x_bars_per_stream)
         if B == 0:
             return []
@@ -275,7 +280,10 @@ class GenerationEngine:
                     continue
                 generated = [self.bar_bos_id] + tokens[b, :counts[b]].tolist()
                 totals[b] += counts[b]
-                histories[b].append((stream[bar_idx], generated, attrs_per_stream[b][bar_idx]))
+                hist_y = generated
+                if forced_history_y is not None and bar_idx < len(forced_history_y[b]):
+                    hist_y = forced_history_y[b][bar_idx]
+                histories[b].append((stream[bar_idx], hist_y, attrs_per_stream[b][bar_idx]))
                 if len(histories[b]) > self.config.context_num_past_xy_pairs:
                     histories[b].pop(0)
                 outputs[b].append(generated)

@@ -404,6 +404,7 @@ class StreamingGenerationEngine:
         x_len_buckets: Sequence[int] = (64, 128, 192, 320),
         bars_bucket: int = 32,
         kv_quant: bool = False,
+        prompt_cap: Optional[int] = None,
     ):
         self.config = config
         self.kv_quant = kv_quant
@@ -413,12 +414,11 @@ class StreamingGenerationEngine:
         self.max_bar_token_limit = min(
             max_bar_token_limit, config.max_position_embeddings
         )
-        # The JAX engine's defaults (no prompt_cap override, context overlap
-        # ratio 0.5): the prompt fills what a bar's tokens leave of the
-        # position budget; past it, keep the last half of the positions.
-        self.prompt_cap = max(
-            config.max_position_embeddings - self.max_bar_token_limit, 1
-        )
+        # The JAX engine's rule (context overlap ratio 0.5): the prompt fills
+        # what a bar's tokens leave of the position budget, or `prompt_cap`
+        # where that is smaller; past it, keep the last half of the positions.
+        derived_cap = max(config.max_position_embeddings - self.max_bar_token_limit, 1)
+        self.prompt_cap = min(prompt_cap, derived_cap) if prompt_cap else derived_cap
         keep = config.max_position_embeddings // 2 - 1
         self.prompt_keep = max(min(keep, self.prompt_cap - 1), 1)
         self.x_len_buckets = sorted(x_len_buckets)

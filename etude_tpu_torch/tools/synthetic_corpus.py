@@ -12,6 +12,16 @@ line in MIDI 60–84, notes one to four eighths long. The versions `etude_d`,
 would be. Songs are CPOP01, CPOP02, ...; with six, `split_songs` holds out
 CPOP01 and CPOP04.
 
+For the decoder-corpus scripts each song also gets `etude_e`, the condition
+side on the same grid (most of `etude_d`'s notes and a few of another draw,
+as an extractor's notes share the song with the cover), and a `wp.json`
+whose `human` entry is the diagonal warping path at ALIGN_FRAME_RATE frames
+per second: `human` and `etude_e` share one timeline, so the diagonal is
+the true mapping. The root gets the reference's `metadata.json`, a list of
+`{"dir_name": ...}`. These come from a generator of their own per song, so
+the four versions above and `songs.json` are the same for a seed with or
+without them.
+
     python -m etude_tpu_torch.tools.synthetic_corpus --out DIR [--songs 6] \\
         [--seconds 20 30] [--seed 0]
 
@@ -33,6 +43,7 @@ from ..utils.midi import write_midi
 
 VERSIONS = ("human", "etude_d", "etude_d_d", "music2midi")
 LEAD_SECONDS = 0.5        # the first downbeat
+ALIGN_FRAME_RATE = 50     # the aligner's feature rate (frames per second)
 
 
 def grid_song(rng: np.random.Generator, eighth: float, seconds: float) -> List[Dict]:
@@ -54,11 +65,21 @@ def grid_song(rng: np.random.Generator, eighth: float, seconds: float) -> List[D
     return notes
 
 
+def condition_side(rng: np.random.Generator, target: List[Dict], eighth: float,
+                   seconds: float) -> List[Dict]:
+    """An extractor-like condition for `target` on its grid: four in five
+    of its notes, and one in five of another draw's."""
+    kept = [n for n in target if rng.random() < 0.8]
+    extra = [n for n in grid_song(rng, eighth, seconds) if rng.random() < 0.2]
+    return sorted(kept + extra, key=lambda n: (n["onset"], n["pitch"]))
+
+
 def write_corpus(root: Path, n_songs: int = 6, seconds: Sequence[float] = (20.0, 30.0),
                  seed: int = 0) -> List[Path]:
     """Write `n_songs` songs of `seconds[0]`–`seconds[1]` s under `root`;
     returns their directories. A `songs.json` beside them records each
-    song's bpm, eighth-note period and length."""
+    song's bpm, eighth-note period and length; `metadata.json` lists the
+    songs as the reference's does."""
     rng = np.random.default_rng(seed)
     root = Path(root)
     dirs, meta = [], {}
@@ -74,8 +95,15 @@ def write_corpus(root: Path, n_songs: int = 6, seconds: Sequence[float] = (20.0,
             write_midi(draws[version], song / f"{version}.mid")
         meta[song.name] = {"bpm": 30.0 / eighth, "eighth_s": eighth, "seconds": length,
                            "notes": {v: len(draws[v]) for v in VERSIONS}}
+        write_midi(condition_side(np.random.default_rng([seed, i, 1]), draws["etude_d"],
+                                  eighth, length), song / "etude_e.mid")
+        frames = list(range(int(round(length * ALIGN_FRAME_RATE))))
+        (song / "wp.json").write_text(json.dumps({"human": {
+            "wp": [frames, frames], "pitch_shift": 0,
+            "num_frames_cover": len(frames), "num_frames_origin": len(frames)}}))
         dirs.append(song)
     (root / "songs.json").write_text(json.dumps(meta, indent=1))
+    (root / "metadata.json").write_text(json.dumps([{"dir_name": d.name} for d in dirs]))
     return dirs
 
 
