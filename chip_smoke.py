@@ -6,47 +6,58 @@
 Phases, each announced with a flushed line when it starts and ends:
 
   1. environment    card name and power limit (nvidia-smi), torch/CUDA
-                    versions; TF32 off for matmuls and cuDNN
-  2. build          nvcc builds every CUDA source of the port and g++ the DBN
-                    decoder, all at once; a second build must be a cache hit
+                    versions; TF32 off for matmuls and cuDNN; the size of
+                    this checkout and of its checkpoints_torch/
+  2. build          nvcc builds every CUDA source of the port and g++ the
+                    host sources (the DBN decoder, the banded DTW, the FIR
+                    resampler), all at once; a second build must be a cache
+                    hit
   3. kernels        each hand kernel against its plain PyTorch version on the
                     card at the main path's shapes, with timings (L2 flushed,
                     device time) beside its bound and a library call where
                     one exists, and at its designs' edge cases; two
                     launches on the same inputs must give the same bits
-  4. serving        the streaming engine at full decoder width (random weights
-                    from a seed through the weight bridge) over GREEDY_BARS
-                    real corpus bars, 16 lockstep streams, greedy, then
-                    sampled over the first SAMPLED_BARS of them; the K1
-                    launch count must equal the engine's S = 1 chunks x
-                    layers; a short window under torch.profiler shows where a
-                    step's time goes; then the same chunks on the card and on
-                    the CPU must agree
-  5. structuralize  `InferencePipeline._run_stage2_structuralize` at full
-                    separator and Beat-Transformer width (random weights from
-                    a seed) on a 240 s click track synthesized from a seed:
-                    span times, 9 K2 launches per forward, a well-formed
-                    tempo.json; then, on a short input, the card's f32
-                    separation features and bf16 beat activations against
-                    the port's CPU f32 path, each beside a control it must
-                    catch
-  6. extract        `AMTAPC_Extractor.extract` at the committed extractor's
-                    full width (random weights from a seed) on the same 240 s
-                    click track, cold, warm and profiled: spans (resample
-                    apart), segments and groups, notes before and after the
+  4. serving        the streaming engine with the shipped decoder
+                    (checkpoints_torch/decoder) over GREEDY_BARS real corpus
+                    bars, 16 lockstep streams, greedy, then sampled over the
+                    first SAMPLED_BARS of them; tokens per bar and the share
+                    of bars ended by Bar_EOS; the K1 launch count must equal
+                    the engine's S = 1 chunks x layers; a short window under
+                    torch.profiler shows where a step's time goes; then the
+                    same chunks on the card and on the CPU must agree
+  5. structuralize  `InferencePipeline._run_stage2_structuralize` from the
+                    shipped separator and Beat-Transformer (the default
+                    paths) on the song: 240 s of seed 0's `grid_song` at
+                    100 BPM rendered by the piano synth at 44.1 kHz
+                    (`write_song`): span times, 9 K2 launches per forward, a
+                    well-formed tempo.json; then, on the song's first
+                    CLIP_SECONDS, the card's f32 separation features and bf16
+                    beat activations against the port's CPU f32 path, each
+                    beside a control it must catch, and the card's
+                    tempo.json against the CPU's
+  6. extract        `AMTAPC_Extractor.extract` from the shipped extractor on
+                    the song, cold, warm, profiled: spans (resample apart),
+                    segments and groups, notes before and after the
                     minimum-duration filter, peak device memory, the top
                     device operations and the device's idle share; a
                     well-formed extract.json; the front end's matmul against
-                    `F.conv2d` of the same filter, timed; then, on a short
-                    input, the card's bf16 head activations against the
-                    port's CPU f32 path, beside controls it must catch (one
-                    attention layer's output zeroed at a time)
-  7. pipeline       `etude_tpu_torch.infer --input` in-process on the 240 s
-                    song at full width (bars capped at 32 tokens): the five
-                    outputs exist and are well formed, the MIDI parses, the
-                    timing summary (audio decode, the concurrent stage 1+2
-                    span with its stage spans, decode); 9 K2 launches and
-                    some K1 launches
+                    `F.conv2d` of the same filter, timed; then, on the clip,
+                    the card's bf16 head activations against the port's CPU
+                    f32 path, beside controls it must catch (one attention
+                    layer's output zeroed at a time), and the card's
+                    extract.json against the CPU's
+  7. shipped        `etude_tpu_torch.infer --input` in-process on the song
+                    from the default model paths (the shipped exports, each
+                    params.npz's sha256 held to checkpoints_torch/
+                    manifest.json), without --allow-random-weights, at the
+                    512-token bar cap: the native FIR resampler timed
+                    against scipy on the song; the five outputs exist and
+                    are well formed, the MIDI parses; the notes and their
+                    onset F1 against the rendered notes, the beats and
+                    downbeats against the rendered grid, the bars and tempo
+                    of tempo.json, tokens per bar and the share ended by
+                    Bar_EOS, the wall of each stage; 9 K2 launches and K1
+                    launches a multiple of 8
   8. prepare        `etude_tpu_torch.prepare --start-from preprocess`
                     in-process on a two-song corpus synthesized from seeds
                     (240 s origin.wav piano renders; cover.wav the same
@@ -76,8 +87,9 @@ Phases, each announced with a flushed line when it starts and ends:
                     transcription, RGC and IPE a MIDI without notes), and
                     the wall per song
  10. cli            `etude_tpu_torch.infer --decode-only` in-process on the
-                    pipeline's work dir cut to its first 30 s of bars, with
-                    synthetic condition notes, to a MIDI file that parses
+                    shipped phase's work dir cut to its first 30 s (bars
+                    capped at 32 tokens), from the shipped decoder, to a
+                    MIDI file that parses
  11. train          `etude_tpu_torch.train` in-process at the published decoder
                     widths on dataset_distill/tokenized (500 songs, 1024-token
                     chunks) with configs/distill.yaml's train settings, 20
@@ -177,7 +189,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     and on the CPU, equal bit for bit, and `--grid tracker`
                     from the aux_train phase's exports (the songs that picked
                     the tracker); `TrackerGrid` on one song card vs CPU
-                    (published widths, seed 0's weights): the refined
+                    (the shipped separator and beat model): the refined
                     downbeats within DC_DOWNBEAT_ATOL and the same grid
                     picked (control: the audio one activation frame later);
                     `eval_distilled --engine rebuild --teacher-forced-history`
@@ -186,7 +198,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     it, and its first song's bars against the CPU's, each
                     equal or first differing at a near-tie (TIE_MARGIN);
                     `eval_engine_parity`; `sweep_sampling` (2 songs, T 0 and
-                    0.7) and `eval_full_pipeline` (1 song) under seed 0's
+                    0.7) and `eval_full_pipeline` (1 song) from the shipped
                     extractor, separator and beat model with the run's
                     decoder; `validate_wpd_audio_path` (2 songs) and
                     `diagnose_wpd_outliers` (one song, its three ablations)
@@ -232,7 +244,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     constant combo the control); the int8 KV cache against
                     bf16 on 16 streams x QUANT_BARS (64-token cap): tok/s,
                     cache bytes, int8 logits card vs CPU within
-                    QUANT_LOGIT_ATOL; the separator bypass card vs CPU
+                    SHIPPED_QUANT_ATOL; the separator bypass card vs CPU
                     within BYPASS_DB_ATOL (control: a frame late) and
                     `detect` on its saved `.npy` (the array's beats, the
                     file removed); synthetic reference `.pth`/`.pkl`
@@ -242,7 +254,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     7's keys from head 6 (control: without the compat)
 
 It prints a `{"kernels": [...]}` line, whose launches are those of the
-serving, structuralize, pipeline, prepare, cli, train, multigpu, aux_train,
+serving, structuralize, shipped, prepare, cli, train, multigpu, aux_train,
 corpus, decoder_corpus, recipe and options runs,
 each counted from 0 (K2b's: the aux_train and corpus phases' beat runs'), then
 `{"ok": true, "device": ...}` as its last line, and exits 0. Any failure
@@ -255,6 +267,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -266,7 +279,10 @@ from typing import Optional
 ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
 
-LOGIT_ATOL, LOGIT_RTOL = 2e-2, 2e-2   # card vs CPU logits, both bf16 paths
+# Card vs CPU logits of seeded decoder weights (the synthetic reference
+# .pth, entry()), both bf16 paths; the shipped decoder's have limits of
+# their own (SHIPPED_LOGIT_ATOL below).
+LOGIT_ATOL, LOGIT_RTOL = 2e-2, 2e-2
 # Card (bf16) vs CPU (f32) beat activations: sigmoid outputs near 0.5 with
 # a spread of about 6e-3 under the random weights. The port's bf16 path
 # differs from its f32 path by 1.5e-3 on the CPU (3 f16 ulps); zeroing one
@@ -285,20 +301,47 @@ SEP_DB_ATOL = 0.1
 # by 3.4e-3, while zeroing one attention layer's output moves them by
 # 1.2e-2 (a decoder self-attention) to 0.27 (the first cross-attention).
 HFT_ATOL = 6e-3
+# Card vs CPU with the shipped weights, whose outputs are sharper than seed
+# 0's, so the limits above are too tight for them. Measured on H100s (NVIDIA
+# H100 80GB HBM3, 700 W), the same in each run; each limit is at least twice
+# its reading and far below every control's, but for the beat activations,
+# whose limit is 1.6 times the reading and 0.69 times the nearest control:
+# - decoder logits, both bf16 paths: the serving chunks 0.180, the
+#   rebuild path's teacher-forced chunks 0.162, the --attrs-prior
+#   chunks 0.181; one layer's attention output zeroed moves them by 6.8 to
+#   19.7 (a constant combo instead of the prior's: 12.6);
+# - the int8 cache's chunks: 0.413; layer 0's attention output zeroed: 23.7;
+# - beat activations, card bf16 vs CPU f32 on the clip: 0.0438; one layer's
+#   K2 output zeroed: 0.101 to 0.742;
+# - hFT heads, card bf16 vs CPU f32 on the clip's first segment: 0.0732;
+#   one attention layer's output zeroed: 0.495 to 1.
+SHIPPED_LOGIT_ATOL, SHIPPED_QUANT_ATOL = 0.5, 1.0
+SHIPPED_ACT_ATOL, SHIPPED_HFT_ATOL = 0.07, 0.2
+# Card vs CPU on the song's first CLIP_SECONDS from the shipped weights:
+# tempo.json's downbeats within one beat-activation frame (1024 samples at
+# 44.1 kHz) and tempi within 1%; extract.json's notes matched one to one
+# (pitch exact, onsets within one 16 kHz / 256 frame) at an F1 of at least
+# NOTE_PARITY_F1.
+TEMPO_DOWNBEAT_ATOL, TEMPO_BPM_RTOL = 1024 / 44100, 1e-2
+NOTE_ONSET_ATOL, NOTE_PARITY_F1 = 256 / 16000, 0.98
+# The shipped phase's floor on what real weights give (random weights keep
+# no note and rarely end a bar): the onset F1 of extract.json against the
+# rendered notes, and the share of decoded bars that end at Bar_EOS.
+SHIPPED_MIN_F1, SHIPPED_MIN_EOS = 0.5, 0.5
 # Card vs CPU separator-bypass features (no U-Net: the mix's f32 DFT and mel
 # on both), in dB.
 BYPASS_DB_ATOL = 1e-3
-# Card vs CPU logits of the int8-cache chunks (both plain PyTorch with exact
-# integer dots; q, K, V and the probabilities quantized from bf16 values that
-# differ by rounding between the devices). Measured first, on an H100 with
-# this limit unset: 0.0152 (the bf16 chunks: 0.0124); zeroing layer 0's
-# attention output moves them by 1.18. Twice the reading.
-QUANT_LOGIT_ATOL = 3e-2
 # The int8 and bf16 caches are timed over the first QUANT_BARS corpus bars
 # (24 until the corpus phase needed the room).
 QUANT_BARS = 16
 BF16_PEAK, F32_PEAK = 989e12, 67e12   # H100 SXM data sheet, dense, at 700 W
 SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 1024
+# The song of the structuralize, extract and shipped phases (`write_song`):
+# seed 0's grid_song with an eighth of SHIPPED_EIGHTH s (100 BPM, a tempo
+# the shipped beat model tracks on these renders; a 120 BPM render it
+# tracked at a slower tempo), and the clip of its first CLIP_SECONDS that
+# the card-vs-CPU checks run on.
+SHIPPED_EIGHTH, CLIP_SECONDS = 0.3, 30.0
 # The serving phase decodes its 24 corpus bars greedily (GREEDY_BARS; the
 # cache is C = 1217), then samples over the first SAMPLED_BARS: enough to
 # check both, and it keeps the whole run inside its time limit on a slow
@@ -426,8 +469,10 @@ MESH_STEPS, SWEEP_BARS, SWEEP_TOKENS, DP_CLI_STEPS = 3, 4, 64, 10
 # 0; distill_dataset's augmentations; the tracker's card-vs-CPU song, the
 # beat activations' frame (44.1 kHz / 1024) and the refined downbeats'
 # limit, half a frame (the DBN lands beats on frames; the least-squares fit
-# over a region's downbeats averages a flipped frame away); eval_distilled's
-# and eval_engine_parity's songs; the pipeline scripts' song length.
+# over a region's downbeats averages a flipped frame away; from the shipped
+# weights on an H100 the gap reads 0 and the control gives another count of
+# downbeats); eval_distilled's and eval_engine_parity's songs; the pipeline
+# scripts' song length.
 DC_SONGS, DC_SECONDS = 4, (20.0, 25.0)
 DC_AUGMENT = ["--transpose", "1", "--phase-shifts", "1", "--double-time"]
 DC_TRACKER_SONG, DC_FRAME = "CPOP01", 1024 / 44100
@@ -449,8 +494,8 @@ TIE_MARGIN = 1.75e-2
 # hold mesh_bench's losses too: within 3e-5 across 1, 2 and 4 ranks).
 MESH_LEARN_STEPS, MESH_LOSS_RTOL, MESH_NORM_RTOL = 8, 2e-4, 3e-3
 # `entry()`: the default decoder's logits (std about 0.45, largest 2.1,
-# under seed 0's weights), card bf16 against CPU f32, as LOGIT_ATOL and
-# LOGIT_RTOL hold the serving logits. Measured on an H100: 0.0234 (inside
+# under seed 0's weights), card bf16 against CPU f32, within LOGIT_ATOL and
+# LOGIT_RTOL. Measured on an H100: 0.0234 (inside
 # through the relative term); zeroing layer 3's attention output: 0.66.
 ENTRY_ATOL, ENTRY_RTOL = LOGIT_ATOL, LOGIT_RTOL
 
@@ -621,7 +666,8 @@ def serve(engine, model, bars, attrs, **kw):
     say(f"  {kw}: {tokens} tokens in {seconds:.2f} s = {tokens / seconds:.1f} tok/s; "
         f"{chunks} S=1 chunks, {1e3 * seconds / max(chunks, 1):.3f} ms per chunk "
         f"(wall, condition chunks included); kernel launches {launches} "
-        f"(expected {expected})")
+        f"(expected {expected}); "
+        + bar_stats([b for s in outs for b in s], engine.bar_eos_id, engine.max_bar_token_limit))
     if launches != expected or launches == 0:
         raise RuntimeError(f"decode_attention launched {launches} times, "
                            f"expected {expected}")
@@ -707,8 +753,8 @@ def chunk_logits(m, config, bars, attr, device, quant=False):
 
 
 def chunk_parity(model, config, bars, attr):
-    """Seed, condition and S = 1 chunks at full width: card (kernel) vs CPU
-    (plain version), same weights and inputs."""
+    """Seed, condition and S = 1 chunks of the shipped decoder: card (kernel)
+    vs CPU (plain version), same inputs, within SHIPPED_LOGIT_ATOL."""
     import copy
 
     card = chunk_logits(model, config, bars, attr, "cuda")
@@ -717,13 +763,13 @@ def chunk_parity(model, config, bars, attr):
     for a, b in zip(card, host):
         if not bool(a.isfinite().all()):
             raise RuntimeError("non-finite logits on the card")
-        excess = ((a - b).abs() - (LOGIT_ATOL + LOGIT_RTOL * b.abs())).max().item()
+        excess = logit_excess(a, b, SHIPPED_LOGIT_ATOL)
         worst = max(worst, (a - b).abs().max().item())
         if excess > 0:
             raise RuntimeError(f"card vs CPU logits differ by {worst:.3g} "
-                               f"(atol {LOGIT_ATOL}, rtol {LOGIT_RTOL})")
+                               f"(atol {SHIPPED_LOGIT_ATOL}, rtol {LOGIT_RTOL})")
     say(f"  card vs CPU chunk logits: max|diff| {worst:.3g} over {len(card)} chunks "
-        f"(atol {LOGIT_ATOL}, rtol {LOGIT_RTOL})")
+        f"(atol {SHIPPED_LOGIT_ATOL}, rtol {LOGIT_RTOL})")
 
 
 def write_click_wav(path: Path, seconds: float, seed: int, bpm: float = 120.0,
@@ -767,21 +813,19 @@ def check_tempo(tempo, seconds):
 
 
 def structuralize(root: Path, wav: Path) -> int:
-    """Drive the port's Structuralize entry point on the card at full width
-    on the 240 s click track, twice (the first run includes cuDNN's and the
-    allocator's first-use costs), then once under the profiler; returns the
-    warm run's K2 launches."""
+    """Drive the port's Structuralize entry point on the card from the
+    shipped separator and beat model (the default paths) on the 240 s song,
+    twice (the first run includes cuDNN's and the allocator's first-use
+    costs), then once under the profiler; returns the warm run's K2
+    launches."""
     import torch
     from etude_tpu_torch.config import load_config
     from etude_tpu_torch.infer import InferencePipeline
     from etude_tpu_torch.ops.dilated_attention import dilated_attention
 
-    config = load_config(None, {"paths": {
-        "infer_output_dir": str(root / "outputs" / "infer"),
-        "separator_model": str(root / "no_separator.ckpt"),
-        "beat_detector_model": str(root / "no_beat.ckpt"),
-    }})
-    pipeline = InferencePipeline(config, device="cuda", allow_random_weights=True)
+    config = load_config(None, {"paths": {"infer_output_dir": str(root / "outputs" / "infer")}})
+    pipeline = InferencePipeline(config, device="cuda")
+    pipeline._require_weights("structuralize")
     walls = {}
     for run in ("cold", "warm"):
         pipeline.timer.spans.clear()
@@ -863,31 +907,34 @@ def hft_operations(c, n_segments: int):
     return 2 * per_frame * T * n_segments, 2 * heads * T * n_segments
 
 
-def stage2_parity(root: Path):
-    """The card against the port's CPU f32 path on a 12 s click track, with
-    the same seeded random weights, each check beside a control that it must
-    catch:
+def stage2_parity(root: Path, wav: Path):
+    """The card against the port's CPU f32 path on the song's first
+    CLIP_SECONDS (`wav`), with the shipped separator and beat model, each
+    check beside a control that it must catch:
 
     - separation features: the card's separator at f32 (TF32 is off) against
       the CPU's, within SEP_DB_ATOL; the control scales the first conv's
       weights by 1.01. The card's production bf16 features are reported, not
-      held: with random weights the U-Net's bf16 masks differ from its f32
-      masks by tens of dB in some bins, in the JAX package as in the port;
+      held;
     - beat activations: the card's bf16 forward (the production path, K2 in
       every layer) against the CPU's f32 one on the CPU's features, within
-      ACT_ATOL; the controls zero one layer's K2 output at a time."""
+      SHIPPED_ACT_ATOL; the controls zero one layer's K2 output at a time;
+    - tempo.json: the card's production path (bf16 features, bf16 beat
+      model, the DBN and the tempo analysis) against the CPU's f32 path:
+      the same regions and time signatures, downbeats within
+      TEMPO_DOWNBEAT_ATOL and tempi within TEMPO_BPM_RTOL."""
     import numpy as np
     import torch
     import etude_tpu_torch.models.beat_transformer as beat_transformer
-    from etude_tpu_torch.config import BeatDetectorConfig
+    from etude_tpu_torch.config import BeatDetectorConfig, PathConfig
+    from etude_tpu_torch.data.beat_analyzer import BeatAnalyzer
     from etude_tpu_torch.data.beat_detector import BeatDetector
     from etude_tpu_torch.data.separation import SourceSeparator
 
-    wav = root / "click_12s.wav"
-    write_click_wav(wav, 12.0, seed=1)
-    feats_cpu = SourceSeparator(device="cpu", allow_random_weights=True
+    paths = PathConfig()
+    feats_cpu = SourceSeparator(model_path=paths.separator_model, device="cpu"
                                 ).separate_features(wav)
-    card = SourceSeparator(device="cuda", allow_random_weights=True)
+    card = SourceSeparator(model_path=paths.separator_model, device="cuda")
     feats_bf16 = card.separate_features(wav)
     diff = np.abs(feats_bf16 - feats_cpu)
     loud = np.minimum(feats_bf16, feats_cpu) > -40.0
@@ -909,8 +956,8 @@ def stage2_parity(root: Path):
     if control <= SEP_DB_ATOL:
         raise RuntimeError(f"the feature check missed its control ({control:.3g} dB)")
 
-    act = {device: BeatDetector(BeatDetectorConfig(), device=device,
-                                allow_random_weights=True)
+    act = {device: BeatDetector(BeatDetectorConfig(), model_path=paths.beat_detector_model,
+                                device=device)
            for device in ("cuda", "cpu")}
     ref = act["cpu"].activations(feats_cpu)
     out = act["cuda"].activations(feats_cpu)
@@ -930,12 +977,41 @@ def stage2_parity(root: Path):
     finally:
         beat_transformer.dilated_attention = real
     say(f"  beat activations [{ref.shape[0]} frames, 2], card bf16 vs CPU f32: "
-        f"max|diff| {err:.3g} (atol {ACT_ATOL}); controls, one layer's K2 output "
+        f"max|diff| {err:.3g} (atol {SHIPPED_ACT_ATOL}); controls, one layer's K2 output "
         f"zeroed: {' '.join(f'{c:.3g}' for c in controls)}")
-    if err > ACT_ATOL:
-        raise RuntimeError(f"card vs CPU beat activations differ by {err:.3g} > {ACT_ATOL}")
-    if min(controls) <= ACT_ATOL:
+    if err > SHIPPED_ACT_ATOL:
+        raise RuntimeError(f"card vs CPU beat activations differ by {err:.3g} > "
+                           f"{SHIPPED_ACT_ATOL}")
+    if min(controls) <= SHIPPED_ACT_ATOL:
         raise RuntimeError(f"the activation check missed a control ({min(controls):.3g})")
+
+    production = act["cuda"].activations(feats_bf16)
+    tempos = {}
+    for device, activations in (("cpu", ref), ("cuda", production)):
+        detector = act[device]
+        detector.activations = lambda features, a=activations: a
+        try:
+            detector.detect(feats_cpu, root / f"beat_{device}.json")
+        finally:
+            del detector.activations
+        tempos[device] = BeatAnalyzer().analyze(root / f"beat_{device}.json")
+        check_tempo(tempos[device], CLIP_SECONDS)
+    cpu, got = tempos["cpu"], tempos["cuda"]
+    same = (len(cpu) == len(got)
+            and all(a["time_sig"] == b["time_sig"] and len(a["downbeats"]) == len(b["downbeats"])
+                    for a, b in zip(cpu, got)))
+    gaps = ([abs(x - y) for a, b in zip(cpu, got) for x, y in zip(a["downbeats"], b["downbeats"])]
+            if same else [float("inf")])
+    bpm_gap = max((abs(a["bpm"] - b["bpm"]) / b["bpm"] for a, b in zip(cpu, got)), default=0.0)
+    say(f"  tempo.json on the {CLIP_SECONDS:.0f} s clip, card production path vs CPU f32: "
+        f"{len(got)} vs {len(cpu)} region(s), "
+        f"{sum(len(r['downbeats']) for r in got)} vs {sum(len(r['downbeats']) for r in cpu)} "
+        f"downbeats, largest downbeat gap {max(gaps, default=0.0):.4f} s "
+        f"(limit {TEMPO_DOWNBEAT_ATOL:.4f}), tempo gap {bpm_gap:.2e} (limit {TEMPO_BPM_RTOL})")
+    if not cpu:
+        raise RuntimeError("the CPU path found no tempo region on the clip")
+    if not same or max(gaps) > TEMPO_DOWNBEAT_ATOL or bpm_gap > TEMPO_BPM_RTOL:
+        raise RuntimeError(f"card vs CPU tempo.json differ: {got!r:.300} vs {cpu!r:.300}")
 
 
 def check_notes(notes, seconds, min_duration=0.08):
@@ -958,16 +1034,16 @@ def check_notes(notes, seconds, min_duration=0.08):
 
 
 def extract(root: Path, wav: Path) -> None:
-    """Drive the port's Extract entry point on the card at the committed
-    extractor's full width (random weights from seed 0) on the 240 s click
-    track, cold and warm, then once under the profiler."""
+    """Drive the port's Extract entry point on the card from the shipped
+    extractor (the default path) on the 240 s song, cold and warm, then once
+    under the profiler."""
     import torch
-    from etude_tpu_torch.config import ExtractorConfig
+    from etude_tpu_torch.config import ExtractorConfig, PathConfig
     from etude_tpu_torch.data.extractor import AMTAPC_Extractor
     from etude_tpu_torch.utils.profiling import StageTimer
 
-    extractor = AMTAPC_Extractor(ExtractorConfig(), model_path=root / "no_extractor.ckpt",
-                                 device="cuda", allow_random_weights=True)
+    extractor = AMTAPC_Extractor(ExtractorConfig(), model_path=PathConfig().extractor_model,
+                                 device="cuda")
     c = extractor.amt_config
     say(f"  hFT: {sum(p.numel() for p in extractor.model.parameters())} parameters, hidden "
         f"{c.hid_dim}, {c.encoder_n_layer}+{c.decoder_n_layer}+{c.decoder_n_layer} layers of "
@@ -1037,23 +1113,38 @@ def frontend_ab(extractor) -> None:
         f"F.conv2d+copy {time_ms(conv, flush=flush):.4f} ms, max|diff| {err:.3g}")
 
 
-def extract_parity(root: Path, model_path: Optional[Path] = None) -> None:
+def extract_parity(root: Path, wav: Path, model_path: Path, atol: float,
+                   notes: bool = False) -> None:
     """The card's bf16 hFT heads against the port's CPU f32 path on the first
-    segment of a 12 s click track, same weights (`model_path`, else seeded
-    random ones), beside controls it must catch: one attention layer's
-    output zeroed at a time on the card. The card's f32 log-mel (TF32 off)
-    against the CPU's is reported."""
+    segment of `wav`, same weights (`model_path`), within `atol`, beside
+    controls it must
+    catch: one attention layer's output zeroed at a time on the card. The
+    card's f32 log-mel (TF32 off) against the CPU's is reported. With
+    `notes`, extract.json of the whole of `wav` too: the card's notes
+    against the CPU's, matched one to one by pitch with onsets within
+    NOTE_ONSET_ATOL, their F1 at least NOTE_PARITY_F1."""
     import numpy as np
     import torch
     import etude_tpu_torch.models.amt as amt
     from etude_tpu_torch.config import ExtractorConfig
     from etude_tpu_torch.data.extractor import AMTAPC_Extractor
+    from etude_tpu_torch.evaluation.metrics.onset_f1 import onset_f1
 
-    wav = root / "click_12s.wav"
-    write_click_wav(wav, 12.0, seed=1)
-    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=model_path or root / "none.ckpt",
-                                     device=device, allow_random_weights=model_path is None)
+    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=model_path, device=device)
             for device in ("cpu", "cuda")}
+    if notes:
+        found = {}
+        for device, x in make.items():
+            t = time.perf_counter()
+            found[device] = x.extract(wav, root / f"extract_{device}.json")
+            check_notes(found[device], CLIP_SECONDS)
+            say(f"  extract.json of the {CLIP_SECONDS:.0f} s clip on the {device}: "
+                f"{len(found[device])} notes in {time.perf_counter() - t:.2f} s")
+        match = onset_f1(found["cpu"], found["cuda"], tolerance=NOTE_ONSET_ATOL)
+        say(f"  card bf16 vs CPU f32 notes: F1 {match['f1']:.4f} ({match['n_match']} matched, "
+            f"pitch exact, onsets within {NOTE_ONSET_ATOL} s; limit {NOTE_PARITY_F1})")
+        if not found["cpu"] or match["f1"] < NOTE_PARITY_F1:
+            raise RuntimeError(f"card vs CPU notes: F1 {match['f1']:.4f} < {NOTE_PARITY_F1}")
     feature = make["cpu"]._wav2feature(wav)
     mel_gap = (make["cuda"]._wav2feature(wav).cpu() - feature).abs().max().item()
     segs, _ = make["cpu"]._segment(feature.numpy())
@@ -1091,51 +1182,158 @@ def extract_parity(root: Path, model_path: Optional[Path] = None) -> None:
     say(f"  log-mel [{feature.shape[0]}, {feature.shape[1]}], card f32 vs CPU f32 (reported "
         f"only): max|diff| {mel_gap:.3g}")
     say(f"  hFT heads [1 segment, {spec.shape[2]} frames], card bf16 vs CPU f32: max|diff| "
-        f"{err:.3g} (atol {HFT_ATOL}); controls, one attention layer's output zeroed: "
+        f"{err:.3g} (atol {atol}); controls, one attention layer's output zeroed: "
         + " ".join(f"{n} {v:.3g}" for n, v in controls.items()))
-    if err > HFT_ATOL:
-        raise RuntimeError(f"card vs CPU hFT heads differ by {err:.3g} > {HFT_ATOL}")
-    if min(controls.values()) <= HFT_ATOL:
+    if err > atol:
+        raise RuntimeError(f"card vs CPU hFT heads differ by {err:.3g} > {atol}")
+    if min(controls.values()) <= atol:
         raise RuntimeError(f"the hFT check missed a control ({min(controls.values()):.3g})")
 
 
-def pipeline_settings(root: Path, repo: Path) -> Path:
-    """A settings file that points the CLI at `root`, with every model path
-    missing (random weights from seed 0), the full-width decoder config, and
-    bars capped at 32 tokens: the tempo grid of a 240 s song holds over a
-    hundred bars, and random weights rarely end a bar early."""
+def serve_settings(root: Path, cap: Optional[int] = None) -> Path:
+    """A settings file that points the CLI at `root` and keeps the default
+    model paths (the shipped exports in checkpoints_torch/); `cap` caps bars
+    at that many tokens (the default is 512)."""
     settings = root / "settings.json"
     root.mkdir(parents=True, exist_ok=True)
-    settings.write_text(json.dumps({
-        "paths": {
-            "infer_output_dir": str(root / "outputs" / "infer"),
-            "extractor_model": str(root / "no_extractor.ckpt"),
-            "separator_model": str(root / "no_separator.ckpt"),
-            "beat_detector_model": str(root / "no_beat.ckpt"),
-            "decoder_config": str(repo / "checkpoints/decoder/etude_decoder_config.json"),
-            "decoder_vocab": str(repo / "checkpoints/decoder/vocab.json"),
-            "decoder_model": str(root / "no_decoder.ckpt"),
-        },
-        "decoder": {"max_bar_token_limit": 32},
-    }))
+    body = {"paths": {"infer_output_dir": str(root / "outputs" / "infer")}}
+    if cap is not None:
+        body["decoder"] = {"max_bar_token_limit": cap}
+    settings.write_text(json.dumps(body))
     return settings
 
 
-def pipeline(root: Path, wav: Path):
-    """`python -m etude_tpu_torch.infer --input` in-process on the 240 s song;
-    returns the work dir and the run's K1 and K2 launches."""
+def write_song(path: Path, seconds: float):
+    """The song: `grid_song` (tools/synthetic_corpus.py) from seed 0 with an
+    eighth of SHIPPED_EIGHTH s (4/4, the first downbeat at LEAD_SECONDS),
+    240 s of it drawn and the notes that start in the first `seconds`
+    rendered by the additive piano synth at 44.1 kHz over `seconds` and
+    written as 16-bit PCM (the corpus render's chain up to its resample);
+    returns those notes."""
+    import numpy as np
+    from etude_tpu_torch.data.synthetic import render_piano
+    from etude_tpu_torch.tools.synthetic_corpus import grid_song
+    from etude_tpu_torch.utils.audio import save_wav
+
+    notes = [n for n in grid_song(np.random.default_rng(0), SHIPPED_EIGHTH, SONG_SECONDS)
+             if n["onset"] < seconds]
+    save_wav(path, render_piano(notes, seconds, sr=ORIGIN_SR), ORIGIN_SR)
+    return notes
+
+
+def song_grid(seconds: float):
+    """The rendered song's beats and downbeats in seconds."""
+    import numpy as np
+    from etude_tpu_torch.tools.synthetic_corpus import LEAD_SECONDS
+
+    beats = np.arange(LEAD_SECONDS, seconds - 1.0, 2 * SHIPPED_EIGHTH)
+    return beats, beats[::4]
+
+
+def shipped_weights(paths) -> None:
+    """The exports the default paths name (`paths`, a PathConfig): each
+    params.npz's sha256 and size against the manifest beside them."""
+    import hashlib
+
+    manifest = json.loads((paths.decoder_model.parent / "manifest.json").read_text())
+    for model, entry in manifest["models"].items():
+        path = getattr(paths, f"{model}_model") / "params.npz"
+        digest = hashlib.sha256(path.read_bytes()).hexdigest()
+        say(f"  {path}: {path.stat().st_size} bytes, sha256 {digest} "
+            f"({entry['parameters']} parameters in {entry['leaves']} leaves, from "
+            f"{entry['source']})")
+        if digest != entry["sha256"] or path.stat().st_size != entry["bytes"]:
+            raise RuntimeError(f"{path} does not match the manifest ({entry['sha256']})")
+
+
+def resample_timing(wav: Path) -> None:
+    """The native FIR against scipy's resample_poly on the song, at the two
+    rates the pipeline resamples to (best of three each)."""
+    import numpy as np
+    from scipy.signal import resample_poly
+    from etude_tpu_torch.utils.audio import load_wav, resample_audio
+
+    wave, sr = load_wav(wav)
+    for target in (16000, 22050):
+        g = np.gcd(sr, target)
+        runs = {"native": lambda: resample_audio(wave, sr, target),
+                "scipy": lambda: resample_poly(wave, target // g, sr // g).astype(np.float32)}
+        ms, out = {}, {}
+        for name, run in runs.items():
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                out[name] = run()
+                times.append(1e3 * (time.perf_counter() - t))
+            ms[name] = min(times)
+        gap = float(np.abs(out["native"] - out["scipy"]).max())
+        say(f"  resample {sr} -> {target} Hz of {len(wave) / sr:.0f} s: native FIR "
+            f"{ms['native']:.1f} ms, scipy resample_poly {ms['scipy']:.1f} ms, max|diff| {gap:.3g}")
+        if out["native"].shape != out["scipy"].shape or gap > 1e-5:
+            raise RuntimeError(f"the native resampler is {gap:.3g} from scipy's")
+
+
+@contextlib.contextmanager
+def recorded_bars(seen: dict):
+    """Keep the bars the streaming engine's `generate` returns in `seen`."""
+    from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
+
+    generate = StreamingGenerationEngine.generate
+
+    def spy(self, *args, **kw):
+        out = generate(self, *args, **kw)
+        seen.update(bars=out, cap=self.max_bar_token_limit, eos=self.bar_eos_id)
+        return out
+
+    StreamingGenerationEngine.generate = spy
+    try:
+        yield seen
+    finally:
+        StreamingGenerationEngine.generate = generate
+
+
+def bar_stats(bars, eos: int, cap: int) -> str:
+    """Tokens per bar (mean, max) and the share of bars ended by Bar_EOS."""
+    import numpy as np
+
+    lengths = np.array([len(b) - 1 for b in bars])
+    ended = sum(1 for b in bars if b[-1] == eos)
+    return (f"{len(bars)} bars, tokens per bar mean {lengths.mean():.1f} max {lengths.max()} "
+            f"(cap {cap}), {ended / len(bars):.3f} ended by Bar_EOS, "
+            f"{int((lengths >= cap).sum())} at the cap")
+
+
+def pipeline(root: Path, wav: Path, truth):
+    """`python -m etude_tpu_torch.infer --input` in-process on the song from
+    the default model paths (the shipped exports), without
+    --allow-random-weights, at the default 512-token bar cap; `truth` is the
+    rendered notes. Returns the work dir and the run's K1 and K2 launches."""
+    import numpy as np
     import torch
     from etude_tpu_torch import infer
+    from etude_tpu_torch.config import PathConfig
+    from etude_tpu_torch.data.synthetic import beat_f_measure
+    from etude_tpu_torch.evaluation.metrics.onset_f1 import onset_f1
     from etude_tpu_torch.ops.decode_attention import decode_attention
     from etude_tpu_torch.ops.dilated_attention import dilated_attention
     from etude_tpu_torch.utils.midi import read_midi_notes
+    from etude_tpu_torch.utils.profiling import StageTimer
 
-    settings = pipeline_settings(root, ROOT)
+    shipped_weights(PathConfig())
+    resample_timing(wav)
+    settings = serve_settings(root)
+    spans, seen = {}, {}
+    print_summary = StageTimer.print_summary
+    StageTimer.print_summary = lambda self, title="": spans.update(self.summary())
     decode_attention.launches = dilated_attention.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
-    rc = infer.main(["--config", str(settings), "--input", str(wav), "--allow-random-weights",
-                     "--output_name", "pipeline", "--seed", "7"])
+    try:
+        with recorded_bars(seen):
+            rc = infer.main(["--config", str(settings), "--input", str(wav),
+                             "--output_name", "pipeline", "--seed", "7"])
+    finally:
+        StageTimer.print_summary = print_summary
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     k1, k2 = decode_attention.launches, dilated_attention.launches
@@ -1155,10 +1353,29 @@ def pipeline(root: Path, wav: Path):
     tempo = json.loads((work / "tempo.json").read_text())
     check_tempo(tempo, SONG_SECONDS)
     played = read_midi_notes(midi)
-    say(f"  --input wall {wall:.3f} s; extract.json {len(notes)} notes, volume.json "
-        f"{len(volume)} values, {len(beats['beat_pred'])} beats, tempo.json "
-        f"{len(tempo)} region(s); {midi.name}: {midi.stat().st_size} bytes, {len(played)} "
-        f"notes; launches K1 {k1}, K2 {k2} (expected 9)")
+    say(f"  --input {wav.name} from the shipped exports (no random-weight flag): wall "
+        f"{wall:.3f} s; {midi.name}: {midi.stat().st_size} bytes, {len(played)} notes; "
+        f"launches K1 {k1}, K2 {k2} (expected 9)")
+    f1 = onset_f1(truth, notes)
+    say(f"  extract.json: {len(notes)} notes; onset F1 against the {len(truth)} rendered "
+        f"notes (50 ms, pitch exact) {f1['f1']:.4f} (precision {f1['precision']:.4f}, "
+        f"recall {f1['recall']:.4f})")
+    ref_beats, ref_downbeats = song_grid(SONG_SECONDS)
+    downbeats = [d for r in tempo for d in r["downbeats"]]
+    say(f"  beat_pred.json: {len(beats['beat_pred'])} beats (F {beat_f_measure(np.asarray(beats['beat_pred']), ref_beats):.4f} "
+        f"against the rendered {len(ref_beats)}), {len(beats['downbeat_pred'])} downbeats "
+        f"(F {beat_f_measure(np.asarray(beats['downbeat_pred']), ref_downbeats):.4f}); "
+        f"tempo.json: {len(tempo)} region(s), {len(downbeats)} bars, "
+        + ", ".join(f"{r['time_sig']}/4 at {r['bpm']:.2f} BPM from {r['start']:.2f} s"
+                    for r in tempo)
+        + f" (rendered: 4/4 at {30.0 / SHIPPED_EIGHTH:.2f} BPM)")
+    say(f"  decode: {bar_stats(seen['bars'], seen['eos'], seen['cap'])}")
+    for name, seconds in spans.items():
+        say(f"    {name:<26s} {1e3 * seconds:10.2f} ms")
+    ended = sum(1 for b in seen["bars"] if b[-1] == seen["eos"]) / max(len(seen["bars"]), 1)
+    if f1["f1"] < SHIPPED_MIN_F1 or ended < SHIPPED_MIN_EOS:
+        raise RuntimeError(f"the shipped weights gave an onset F1 of {f1['f1']:.3f} and "
+                           f"{ended:.3f} of bars ended by Bar_EOS")
     if k2 != 9:
         raise RuntimeError(f"dilated_attention launched {k2} times, expected 9")
     if k1 == 0 or k1 % 8:
@@ -1645,8 +1862,9 @@ def evaluate_phase(root: Path, prepared: Path, midi: Path) -> None:
 
 def cli_work_dir(root: Path, src: Path, seconds: float) -> Path:
     """A decode-only work dir: `src`'s tempo.json cut to the bars of its
-    first `seconds` and its volume.json, with 40 synthetic condition notes
-    (random extractor weights keep no note of the click track)."""
+    first `seconds`, its extract.json's notes that start before then and its
+    volume.json; its settings keep the default model paths (the shipped
+    exports) and cap bars at 32 tokens."""
     work = root / "outputs" / "infer" / "temp"
     work.mkdir(parents=True)
     tempo = []
@@ -1655,11 +1873,10 @@ def cli_work_dir(root: Path, src: Path, seconds: float) -> Path:
         if downbeats:
             tempo.append(dict(region, downbeats=downbeats))
     (work / "tempo.json").write_text(json.dumps(tempo))
-    notes = [{"onset": 1.0 + 0.5 * i, "offset": 1.4 + 0.5 * i,
-              "pitch": 48 + (7 * i) % 36, "velocity": 80} for i in range(40)]
+    notes = [n for n in json.loads((src / "extract.json").read_text()) if n["onset"] < seconds]
     (work / "extract.json").write_text(json.dumps(notes))
     (work / "volume.json").write_bytes((src / "volume.json").read_bytes())
-    return pipeline_settings(root, ROOT)
+    return serve_settings(root, 32)
 
 
 def train_settings(root: Path, tokenized: Path) -> Path:
@@ -2789,23 +3006,26 @@ def dc_distill(root, walls, songs, exports):
 
 
 def dc_tracker_parity(root, walls, songs):
-    """TrackerGrid on one song, card against the port's CPU, at the
-    published widths under seed 0's random weights (the aux_train phase's
-    30-step beat export predicts no downbeat on these renders, so its grid
-    is empty on both): the tracker's refined downbeats (before the phase
-    moves onto the notes) within DC_DOWNBEAT_ATOL, the same grid picked;
-    control: the notes (so the audio) one activation frame later on the
-    card."""
+    """TrackerGrid on one song from the shipped separator and beat model,
+    card against the port's CPU: the tracker's refined downbeats (before
+    the phase moves onto the notes) within DC_DOWNBEAT_ATOL, the same grid
+    picked; control: the notes (so the audio) one activation frame later on
+    the card."""
     import numpy as np
+    from etude_tpu_torch.config import PathConfig
     from etude_tpu_torch.scripts import distill_dataset as dd
     from etude_tpu_torch.utils.midi import read_midi_notes
 
+    paths = PathConfig()
+    models = (paths.separator_model, paths.beat_detector_model)
+    if not all((m / "params.npz").is_file() for m in models):
+        raise RuntimeError(f"no export at {models}")   # TrackerGrid would run random weights
     notes = read_midi_notes(songs / DC_TRACKER_SONG / "etude_d.mid")
     later = [dict(n, onset=n["onset"] + DC_FRAME, offset=n["offset"] + DC_FRAME) for n in notes]
     grids = {}
     for device in ("cpu", "cuda"):
         t = time.perf_counter()
-        grid = dd.TrackerGrid(root / "no_separator.ckpt", root / "no_beat.ckpt", device)
+        grid = dd.TrackerGrid(*models, device)
         grids[device] = grid.track(notes, root / f"parity_{device}.wav")
         walls[f"TrackerGrid {device}"] = time.perf_counter() - t
         if device == "cuda":
@@ -2954,20 +3174,13 @@ def device_busy_us(run) -> float:
 
 def dc_pipeline_settings(root, run_dir) -> Path:
     """Settings for sweep_sampling and eval_full_pipeline: the train phase's
-    decoder; the extractor, separator and beat model at the published widths
-    under seed 0's random weights (the aux_train phase's 30-step beat export
-    predicts no downbeat on these renders, and without a grid there is
-    nothing to decode), the extractor at PREP_THRESHOLDS (the published ones
-    keep no note of random weights); 64-token bars."""
+    decoder, the default (shipped) extractor, separator and beat model;
+    64-token bars."""
     settings = root / "settings.json"
     settings.write_text(json.dumps({
-        "paths": {"extractor_model": str(root / "no_extractor.ckpt"),
-                  "separator_model": str(root / "no_separator.ckpt"),
-                  "beat_detector_model": str(root / "no_beat.ckpt"),
-                  "decoder_model": str(run_dir / "model"),
+        "paths": {"decoder_model": str(run_dir / "model"),
                   "decoder_config": str(run_dir / "etude_decoder_config.json"),
                   "decoder_vocab": str(run_dir / "vocab.json")},
-        "extractor": PREP_THRESHOLDS["extractor"],
         "decoder": {"max_bar_token_limit": 64}}))
     return settings
 
@@ -2998,7 +3211,7 @@ def dc_pipeline(root, walls, songs, run_dir):
     from etude_tpu_torch.scripts import eval_full_pipeline, sweep_sampling
 
     settings = dc_pipeline_settings(root, run_dir)
-    models = ["--config", str(settings), "--allow-random-weights", "--corpus", str(songs),
+    models = ["--config", str(settings), "--corpus", str(songs),
               "--seconds", str(DC_PIPELINE_SECONDS)]
     sweep_out = root / "sweep.json"
     (rc, results), k1, k2 = dc_stage(walls, "sweep_sampling", lambda: dc_printed(
@@ -3592,10 +3805,10 @@ def teacher_forced_logits(model, config, vocab, bars, attrs, device):
     return torch.stack(outs).float().cpu()
 
 
-def logit_excess(a, b) -> float:
-    """How far card logits `a` lie outside LOGIT_ATOL + LOGIT_RTOL x |b| of
-    the CPU's `b` (positive: outside)."""
-    return ((a - b).abs() - (LOGIT_ATOL + LOGIT_RTOL * b.abs())).max().item()
+def logit_excess(a, b, atol: float = LOGIT_ATOL) -> float:
+    """How far card logits `a` lie outside atol + LOGIT_RTOL x |b| of the
+    CPU's `b` (positive: outside)."""
+    return ((a - b).abs() - (atol + LOGIT_RTOL * b.abs())).max().item()
 
 
 def zeroed_attention(model, layer):
@@ -3615,22 +3828,22 @@ def zeroed_attention(model, layer):
     return ctx()
 
 
-def decoder_parity(name, card, host_model, config, vocab, bars, attrs):
+def decoder_parity(name, card, host_model, config, vocab, bars, attrs, atol=LOGIT_ATOL):
     """`teacher_forced_logits` on the card (K1 on every S = 1 step) and on a
-    CPU copy (the plain version), within LOGIT_ATOL; controls: one layer's
+    CPU copy (the plain version), within `atol`; controls: one layer's
     attention output zeroed on the card, each layer in turn."""
     host = teacher_forced_logits(host_model, config, vocab, bars, attrs, "cpu")
     out = teacher_forced_logits(card, config, vocab, bars, attrs, "cuda")
     if not bool(out.isfinite().all()):
         raise RuntimeError(f"{name}: non-finite logits on the card")
-    gap, excess = (out - host).abs().max().item(), logit_excess(out, host)
+    gap, excess = (out - host).abs().max().item(), logit_excess(out, host, atol)
     controls = []
     for layer in range(config.num_hidden_layers):
         with zeroed_attention(card, layer):
             got = teacher_forced_logits(card, config, vocab, bars, attrs, "cuda")
-        controls.append(((got - host).abs().max().item(), logit_excess(got, host)))
+        controls.append(((got - host).abs().max().item(), logit_excess(got, host, atol)))
     say(f"  {name}: teacher-forced logits (prefill + 8 S=1 steps, B=2), card vs CPU max|diff| "
-        f"{gap:.3g} (atol {LOGIT_ATOL}, rtol {LOGIT_RTOL}); controls, one layer's attention "
+        f"{gap:.3g} (atol {atol}, rtol {LOGIT_RTOL}); controls, one layer's attention "
         f"output zeroed: {' '.join(f'{c:.3g}' for c, _ in controls)}")
     if excess > 0:
         raise RuntimeError(f"{name}: card vs CPU logits differ by {gap:.3g}")
@@ -3713,7 +3926,7 @@ def options_rebuild(cli_root, model, host_model, config, vocab, bars, attrs, flu
         check_kernel(16, C, 70 + C, flush)
     decoder_parity("rebuild path", model, host_model, config, vocab, bars,
                    {"polyphony_bin": 1, "rhythm_intensity_bin": 1, "sustain_bin": 1,
-                    "pitch_overlap_bin": 2})
+                    "pitch_overlap_bin": 2}, atol=SHIPPED_LOGIT_ATOL)
     return launches
 
 
@@ -3759,8 +3972,9 @@ def options_attrs_prior(cli_root, model, host_model, config, vocab):
     card = teacher_forced_logits(model, config, vocab, window, want[i], "cuda")
     host = teacher_forced_logits(host_model, config, vocab, window, want[i], "cpu")
     control = teacher_forced_logits(model, config, vocab, window, constant, "cuda")
-    gap, excess = (card - host).abs().max().item(), logit_excess(card, host)
-    moved, moved_excess = (control - host).abs().max().item(), logit_excess(control, host)
+    gap, excess = (card - host).abs().max().item(), logit_excess(card, host, SHIPPED_LOGIT_ATOL)
+    moved = (control - host).abs().max().item()
+    moved_excess = logit_excess(control, host, SHIPPED_LOGIT_ATOL)
     say(f"  --attrs-prior CLI: {len(want)} bars, {len(set(combos))} distinct bin combos, equal "
         f"to the CPU's predictor; K1 launches {launches}. Bar {i} ({want[i]}): card vs CPU "
         f"logits max|diff| {gap:.3g}; control, constant combo {constant}: {moved:.3g}")
@@ -3848,7 +4062,9 @@ def options_reference(root: Path, vocab, bars, features):
             raise RuntimeError(f"hFT .pkl and .pth weights differ at {name}")
     say("  reference hFT: .pkl (a pickled whole model of unknown classes) and .pth load "
         "the same weights")
-    extract_parity(root, model_path=paths.extractor_model)
+    wav = root / "click_12s.wav"
+    write_click_wav(wav, 12.0, seed=1)
+    extract_parity(root, wav, paths.extractor_model, HFT_ATOL)
 
     real = beat_transformer.dilated_attention
     flags = []
@@ -3888,9 +4104,10 @@ def options_reference(root: Path, vocab, bars, features):
 
 
 def quant_parity(model, host_model, config, bars, attr):
-    """`chunk_parity`'s chunks on int8 caches, card vs CPU (both plain
-    PyTorch with exact integer dots): within QUANT_LOGIT_ATOL; control: one
-    layer's attention output zeroed on the card."""
+    """`chunk_parity`'s chunks of the shipped decoder on int8 caches, card vs
+    CPU (both plain PyTorch with exact integer dots): within
+    SHIPPED_QUANT_ATOL; control: one layer's attention output zeroed on the
+    card."""
     import torch
     from etude_tpu_torch.ops.decode_attention import decode_attention
 
@@ -3904,10 +4121,10 @@ def quant_parity(model, host_model, config, bars, attr):
     gap = max((a - b).abs().max().item() for a, b in zip(card, host))
     moved = max((a - b).abs().max().item() for a, b in zip(control, host))
     say(f"  int8 cache chunks, card vs CPU logits: max|diff| {gap:.3g} (atol "
-        f"{QUANT_LOGIT_ATOL}); control, layer 0's attention output zeroed: {moved:.3g}")
-    if not all(bool(a.isfinite().all()) for a in card) or gap > QUANT_LOGIT_ATOL:
+        f"{SHIPPED_QUANT_ATOL}); control, layer 0's attention output zeroed: {moved:.3g}")
+    if not all(bool(a.isfinite().all()) for a in card) or gap > SHIPPED_QUANT_ATOL:
         raise RuntimeError(f"int8 card vs CPU logits differ by {gap:.3g}")
-    if moved <= QUANT_LOGIT_ATOL:
+    if moved <= SHIPPED_QUANT_ATOL:
         raise RuntimeError(f"the int8 logit check missed its control ({moved:.3g})")
 
 
@@ -3952,7 +4169,7 @@ def options_bypass(root: Path):
     array, and the file is gone afterwards (control: `cleanup_input=False`
     keeps it). Returns (features, K2 launches)."""
     import numpy as np
-    from etude_tpu_torch.config import BeatDetectorConfig
+    from etude_tpu_torch.config import BeatDetectorConfig, PathConfig
     from etude_tpu_torch.data.beat_detector import BeatDetector
     from etude_tpu_torch.data.separation import SourceSeparator
     from etude_tpu_torch.ops.dilated_attention import dilated_attention
@@ -3971,7 +4188,8 @@ def options_bypass(root: Path):
         raise RuntimeError(f"bypass features: card vs CPU differ by {gap:.3g} dB")
     if control <= BYPASS_DB_ATOL:
         raise RuntimeError(f"the bypass check missed its control ({control:.3g} dB)")
-    detector = BeatDetector(BeatDetectorConfig(), device="cuda", allow_random_weights=True)
+    detector = BeatDetector(BeatDetectorConfig(), model_path=PathConfig().beat_detector_model,
+                            device="cuda")
     dilated_attention.launches = 0
     want = detector.detect(card)
     kept = detector.detect(npy, cleanup_input=False)
@@ -4479,7 +4697,7 @@ def sweep_cli(root: Path) -> int:
         {"onset": 1.0 + 0.5 * i, "offset": 1.4 + 0.5 * i, "pitch": 48 + (7 * i) % 36,
          "velocity": 80} for i in range(30)]))
     (work / "volume.json").write_text(json.dumps([0.5] * 2000))
-    settings = pipeline_settings(root, ROOT)
+    settings = serve_settings(root, 32)
     seen = []
     generate_batch = StreamingGenerationEngine.generate_batch
 
@@ -4492,7 +4710,7 @@ def sweep_cli(root: Path) -> int:
     t = time.perf_counter()
     try:
         rc = infer.main(["--config", str(settings), "--decode-only", "--sweep",
-                         "--allow-random-weights", "--output_name", "sweep", "--seed", "7"])
+                         "--output_name", "sweep", "--seed", "7"])
     finally:
         StreamingGenerationEngine.generate_batch = generate_batch
     wall = time.perf_counter() - t
@@ -4563,6 +4781,7 @@ def main() -> int:
         say(f"chip_smoke: the package etude_tpu_torch is not beside {__file__}")
         return 1
     sys.path.insert(0, str(ROOT))
+    os.chdir(ROOT)   # the default model paths are relative, as the JAX package's
 
     with phase("environment"):
         smi = subprocess.run(
@@ -4576,6 +4795,14 @@ def main() -> int:
             f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s): {kind}")
         say(f"  allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
             f"cudnn {torch.backends.cudnn.allow_tf32}")
+        from etude_tpu_torch.config import PathConfig
+
+        shipped = PathConfig()
+        files = [f for f in ROOT.rglob("*") if f.is_file()]
+        exports = sum(f.stat().st_size for f in shipped.decoder_model.parent.rglob("*")
+                      if f.is_file())
+        say(f"  this checkout: {len(files)} files, {sum(f.stat().st_size for f in files) / 2**20:.1f} "
+            f"MiB, of which {shipped.decoder_model.parent}/ {exports / 2**20:.1f} MiB")
 
     from etude_tpu_torch.ops import _build
 
@@ -4594,7 +4821,7 @@ def main() -> int:
     from etude_tpu_torch.data.vocab import Vocab
     from etude_tpu_torch.models.decoder import EtudeDecoderConfig
     from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
-    from etude_tpu_torch.weights import decoder_from_jax, init_decoder_params_np
+    from etude_tpu_torch.utils.model_loader import load_etude_decoder
 
     config = EtudeDecoderConfig.from_json_file(
         ROOT / "checkpoints/decoder/etude_decoder_config.json")
@@ -4647,8 +4874,9 @@ def main() -> int:
         del flush
 
     with phase("serving"):
-        model = decoder_from_jax(init_decoder_params_np(config, seed=0), config, "cuda")
-        say(f"  decoder: {sum(p.numel() for p in model.parameters())} parameters, "
+        model, _ = load_etude_decoder(shipped.decoder_config, shipped.decoder_model,
+                                      device="cuda")
+        say(f"  decoder (shipped): {sum(p.numel() for p in model.parameters())} parameters, "
             f"{len(bars)} corpus bars, 16 streams, cache C = {main_C}")
         say(f"  host: {host_launch_us():.2f} us per eager launch (1-element add)")
         launches = 0
@@ -4664,18 +4892,21 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        song = tmp / "click_240s.wav"
-        write_click_wav(song, SONG_SECONDS, seed=0)
+        song, clip = tmp / "song_240s.wav", tmp / "song_30s.wav"
+        truth = write_song(song, SONG_SECONDS)
+        write_song(clip, CLIP_SECONDS)
+        say(f"  the song: {len(truth)} notes of seed 0's grid_song at {30.0 / SHIPPED_EIGHTH:.0f} "
+            f"BPM over {SONG_SECONDS:.0f} s, {song.stat().st_size} bytes of 16-bit PCM")
         with phase("structuralize"):
             k2_launches = structuralize(tmp / "stage2", song)
-            stage2_parity(tmp)
+            stage2_parity(tmp, clip)
 
         with phase("extract"):
             extract(tmp / "stage1", song)
-            extract_parity(tmp)
+            extract_parity(tmp, clip, shipped.extractor_model, SHIPPED_HFT_ATOL, notes=True)
 
-        with phase("pipeline"):
-            work, k1, k2 = pipeline(tmp / "pipeline", song)
+        with phase("shipped"):
+            work, k1, k2 = pipeline(tmp / "pipeline", song, truth)
             launches += k1
             k2_launches += k2
 
@@ -4694,8 +4925,7 @@ def main() -> int:
             settings = cli_work_dir(tmp / "cli", work, 30.0)
             decode_attention.launches = 0
             rc = infer.main(["--config", str(settings), "--decode-only",
-                             "--allow-random-weights", "--output_name", "smoke",
-                             "--seed", "7"])
+                             "--output_name", "smoke", "--seed", "7"])
             launches += decode_attention.launches
             out = tmp / "cli" / "outputs" / "infer" / "smoke.mid"
             if rc != 0 or not out.exists():

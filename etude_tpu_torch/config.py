@@ -45,11 +45,16 @@ class MeshConfig:
 
 @dataclasses.dataclass
 class PathConfig:
+    """The JAX schema's paths, but for the four models' weights: the JAX
+    package reads `checkpoints/<model>/latest.ckpt` (orbax), the port the
+    params-only exports of the same trees in `checkpoints_torch/<model>`
+    (written by the repository's `export_weights.py`)."""
+
     checkpoints_dir: Path = Path("checkpoints")
-    extractor_model: Path = Path("checkpoints/extractor/latest.ckpt")
-    beat_detector_model: Path = Path("checkpoints/beat_detector/latest.ckpt")
-    separator_model: Path = Path("checkpoints/separator/latest.ckpt")
-    decoder_model: Path = Path("checkpoints/decoder/latest.ckpt")
+    extractor_model: Path = Path("checkpoints_torch/extractor")
+    beat_detector_model: Path = Path("checkpoints_torch/beat_detector")
+    separator_model: Path = Path("checkpoints_torch/separator")
+    decoder_model: Path = Path("checkpoints_torch/decoder")
     decoder_config: Path = Path("checkpoints/decoder/etude_decoder_config.json")
     decoder_vocab: Path = Path("checkpoints/decoder/vocab.json")
     hft_model: Path = Path("checkpoints/hft_transformer/latest.ckpt")

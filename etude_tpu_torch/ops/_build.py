@@ -3,17 +3,21 @@
 Each `csrc/<name>.cu` exposes a plain C interface (`extern "C"` launchers that
 return `cudaGetLastError()`), so nvcc compiles it in seconds without
 PyTorch's headers. `native/<name>.cc` is host C++ (the DBN decoder, the
-aligner's banded DTW), built with g++. Each shared library lands in `build/kernels/` at the repository
-root (listed in .gitignore), named by a hash of its source directory and
-flags: a rebuild with unchanged sources is a cache hit. Nothing is built or
-loaded when this module is imported; the first use of a library builds it.
+aligner's banded DTW, the polyphase resampler), built with g++. Each shared
+library lands in `build/kernels/` at the repository root (listed in
+.gitignore), named by a hash of its source directory and flags (and, for
+host code, of the CPU it is built for): a rebuild with unchanged sources is
+a cache hit. Nothing is built or loaded when this module is imported; the
+first use of a library builds it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -26,13 +30,17 @@ CSRC_DIR = PKG_DIR / "csrc"
 NATIVE_DIR = PKG_DIR / "native"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 CUDA_SOURCES = ("decode_attention", "dilated_attention", "dilated_attention_bwd")  # csrc/<name>.cu
-HOST_SOURCES = ("dbn_viterbi", "dtw_band")                 # native/<name>.cc
+HOST_SOURCES = ("dbn_viterbi", "dtw_band", "resample_fir")  # native/<name>.cc
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# As the JAX package builds its copies (etude_tpu/native/__init__.py), so
+# that the two give the same bits (-march=native lets g++ contract the
+# resampler's multiply-adds). The library's name hashes the host's CPU with
+# the flags, since code built for one CPU may not run on another.
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -72,19 +80,35 @@ def source_path(name: str) -> Path:
     raise KeyError(f"no native source named {name!r}")
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS if name in CUDA_SOURCES else GXX_FLAGS
+
+
 def _compiler(name: str) -> Tuple[str, ...]:
     """The compile command for `name`, up to the output and source paths."""
-    if name in CUDA_SOURCES:
-        return (_nvcc(), *NVCC_FLAGS)
-    return (_gxx(), *GXX_FLAGS)
+    return (_nvcc() if name in CUDA_SOURCES else _gxx(), *_flags(name))
+
+
+@functools.cache
+def _host_cpu() -> str:
+    """The host CPU's model and flags, as /proc/cpuinfo gives them
+    (`platform.processor()` where there is no such file)."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return platform.processor()
+    keep = [ln for ln in lines if ln.split(":")[0].strip() in ("model name", "flags")]
+    return "\n".join(dict.fromkeys(keep))
 
 
 def library_path(name: str) -> Path:
-    """Where the library for `name` lives for the current sources and flags
-    (every file beside its source is hashed, so a shared header counts)."""
+    """Where the library for `name` lives for the current sources, flags and
+    host CPU (every file beside its source is hashed, so a shared header
+    counts)."""
     src = source_path(name)
-    flags = NVCC_FLAGS if name in CUDA_SOURCES else GXX_FLAGS
-    digest = hashlib.sha256(" ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
+    if name in HOST_SOURCES:
+        digest.update(_host_cpu().encode())
     for path in sorted(src.parent.iterdir()):
         if path.is_file():
             digest.update(path.name.encode())

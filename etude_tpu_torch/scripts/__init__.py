@@ -45,14 +45,18 @@ Each keeps its JAX counterpart's arguments, defaults and outputs, with these
 differences: an explicit `--device` (default `cuda`; without a GPU it raises
 unless `--device cpu` is given) wherever a model runs, and nothing is
 written under the repository's `checkpoints/`, which holds the JAX
-package's checkpoints, nor, by the decoder-corpus scripts, under
+package's checkpoints, or `checkpoints_torch/`, which holds their exports,
+nor, by the decoder-corpus scripts, under
 `dataset_distill/` or `validation/` (`refuse_committed`): their outputs
 default to paths under `outputs/` or the temporary directory, with names of
 their own. Where a JAX script reads the committed orbax
 checkpoint of the separator or the beat model, the port's takes the weights
 by a flag, `--separator-model` or `--beat-model`: a params-only export,
-by default the one `python -m etude_tpu_torch.train_aux` writes
-(`aux_export`). A missing export runs random weights from seed 0 with a
+by default the export of that same committed tree (`PathConfig`'s
+`separator_model` and `beat_detector_model`, in `checkpoints_torch/`,
+relative to the working directory as every default path of the port's
+CLIs), or one that `python -m etude_tpu_torch.train_aux` writes under
+AUX_EXPORTS. A missing export runs random weights from seed 0 with a
 warning, as the JAX scripts do for a missing checkpoint; an orbax
 checkpoint raises. The decoder comes from `--run` (a training run's
 `model/` or a published `latest.ckpt`); the full pipeline's weights from the
@@ -72,12 +76,6 @@ OUTPUTS = REPO / "outputs"
 AUX_EXPORTS = OUTPUTS / "train_aux"
 
 
-def aux_export(name: str) -> Path:
-    """The default export of an aux model (`separator`, `beat_detector`,
-    `extractor`) under AUX_EXPORTS."""
-    return AUX_EXPORTS / name / "latest"
-
-
 # The JAX package's committed outputs, which no script of the port writes.
 COMMITTED = ("checkpoints", "dataset_distill", "validation")
 
@@ -88,12 +86,12 @@ def refuse_committed(path: Union[str, Path], flag: str, names=COMMITTED) -> Path
     path = Path(path).resolve()
     for name in names:
         if path.is_relative_to((REPO / name).resolve()):
-            raise ValueError(f"{path} is under {name}/, which holds the JAX package's "
-                             f"committed files; pick another {flag}")
+            raise ValueError(f"{path} is under {name}/, which holds committed files; "
+                             f"pick another {flag}")
     return path
 
 
 def refuse_checkpoints(path: Union[str, Path], flag: str) -> Path:
     """`path` resolved; raises when it lies under the repository's
-    `checkpoints/`."""
-    return refuse_committed(path, flag, ("checkpoints",))
+    `checkpoints/` or `checkpoints_torch/`."""
+    return refuse_committed(path, flag, ("checkpoints", "checkpoints_torch"))

@@ -54,7 +54,8 @@ from pathlib import Path
 
 import numpy as np
 
-from . import OUTPUTS, aux_export, refuse_committed
+from ..config import PathConfig
+from . import OUTPUTS, refuse_committed
 from ..data.corpus_render import CORPUS_ROOT
 from ..data.tokenizer import TinyREMITokenizer
 from ..data.vocab import Vocab
@@ -345,9 +346,9 @@ def main(argv=None) -> int:
         "absolute slot times at 2x resolution — exact; matches the beat "
         "tracker's legitimate octave ambiguity at serving)",
     )
-    parser.add_argument("--separator-model", default=str(aux_export("separator")),
+    parser.add_argument("--separator-model", default=str(PathConfig().separator_model),
                         help="separator export (params-only), for --grid tracker")
-    parser.add_argument("--beat-model", default=str(aux_export("beat_detector")),
+    parser.add_argument("--beat-model", default=str(PathConfig().beat_detector_model),
                         help="beat model export (params-only), for --grid tracker")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)

@@ -33,7 +33,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import aux_export, refuse_checkpoints
+from ..config import PathConfig
+from . import refuse_checkpoints
 from .validate_beat_corpus import grid_beat_times, snap_gated_song
 from ..data.corpus_render import CORPUS_ROOT
 from ..data.pseudopop import STEM_NAMES, build_stems as _build_stems
@@ -93,9 +94,9 @@ def main(argv=None) -> int:
     parser.add_argument("--corpus", default=str(CORPUS_ROOT))
     parser.add_argument("--sr", type=int, default=44100)
     parser.add_argument("--out", default=None, help="write JSON summary here")
-    parser.add_argument("--separator-model", default=str(aux_export("separator")),
+    parser.add_argument("--separator-model", default=str(PathConfig().separator_model),
                         help="separator export (params-only)")
-    parser.add_argument("--beat-model", default=str(aux_export("beat_detector")),
+    parser.add_argument("--beat-model", default=str(PathConfig().beat_detector_model),
                         help="beat model export (params-only)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)

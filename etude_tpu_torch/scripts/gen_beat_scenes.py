@@ -33,7 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
-from . import REPO, aux_export, refuse_checkpoints
+from ..config import PathConfig
+from . import REPO, refuse_checkpoints
 from .distill_dataset import estimate_tempo_grid, grid_fit_score
 from .validate_beat_corpus import grid_beat_times
 from ..data.corpus_render import CORPUS_ROOT, corpus_song_dirs, split_songs
@@ -157,7 +158,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--snap-gate", type=float, default=0.02)
     parser.add_argument("--corpus", default=str(CORPUS_ROOT))
-    parser.add_argument("--separator-model", default=str(aux_export("separator")),
+    parser.add_argument("--separator-model", default=str(PathConfig().separator_model),
                         help="separator export (params-only)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)

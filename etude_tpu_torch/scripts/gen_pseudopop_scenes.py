@@ -36,7 +36,8 @@ from pathlib import Path
 
 import numpy as np
 
-from . import REPO, aux_export, refuse_checkpoints
+from ..config import PathConfig
+from . import REPO, refuse_checkpoints
 from .gen_beat_scenes import T_FRAMES, scene_features, snap_gated_pool, window_labels
 from ..data.corpus_render import CORPUS_ROOT
 from ..data.pseudopop import MIX_GAINS, STEM_NAMES, build_stems
@@ -207,7 +208,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--snap-gate", type=float, default=0.02)
     parser.add_argument("--corpus", default=str(CORPUS_ROOT))
-    parser.add_argument("--separator-model", default=str(aux_export("separator")),
+    parser.add_argument("--separator-model", default=str(PathConfig().separator_model),
                         help="features stage: separator export (params-only)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="features stage: where the separator runs")

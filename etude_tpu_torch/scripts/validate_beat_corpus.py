@@ -32,7 +32,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import aux_export
+from ..config import PathConfig
 from .distill_dataset import estimate_tempo_grid, grid_fit_score
 from ..data.corpus_render import CORPUS_ROOT
 from ..data.synthetic import beat_f_measure, render_piano
@@ -148,9 +148,9 @@ def main(argv=None) -> int:
     parser.add_argument("--octave-disambiguation", action="store_true",
                         help="enable the DBN tempo-octave correction pass "
                              "(ops/beat_octave.py)")
-    parser.add_argument("--separator-model", default=str(aux_export("separator")),
+    parser.add_argument("--separator-model", default=str(PathConfig().separator_model),
                         help="separator export (params-only)")
-    parser.add_argument("--beat-model", default=str(aux_export("beat_detector")),
+    parser.add_argument("--beat-model", default=str(PathConfig().beat_detector_model),
                         help="beat model export (params-only)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)

@@ -13,8 +13,9 @@ counterpart: scripts/train_aux_synthetic.py).
 names another directory. Each export is a directory in the port's
 params-only format (`params.npz`, floats stored as f16) with the run's
 `metadata.json` beside it; `paths.{beat_detector,extractor,separator}_model`
-pointed at it serves it. Nothing is written under `checkpoints/`: those are
-the JAX package's orbax files. `--device cpu` runs on the CPU (bf16 compute
+pointed at it serves it. Nothing is written under `checkpoints/` or
+`checkpoints_torch/`: those are the JAX package's orbax files and the
+port's exports of them. `--device cpu` runs on the CPU (bf16 compute
 on the card, f32 on the CPU).
 
 The JAX script's arithmetic is kept: the published widths

@@ -1,10 +1,10 @@
 """Host-side audio I/O and the volume map (JAX counterpart:
 etude_tpu/utils/audio.py).
 
-WAV is read and written with scipy.io.wavfile; resampling is scipy's
-polyphase `resample_poly` in f32 (the JAX package evaluates the same filter
-in a native FIR, a host speed-up). Other containers go through ffmpeg where
-it is installed.
+WAV is read and written with scipy.io.wavfile; resampling evaluates scipy's
+polyphase `resample_poly` filter in the port's native FIR
+(`ops/resample.py`, `native/resample_fir.cc`), as the JAX package does.
+Other containers go through ffmpeg where it is installed.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
+
+from ..ops.resample import resample_poly_native
 
 
 def load_wav(path: Union[str, Path], target_sr: Optional[int] = None,
@@ -45,12 +46,12 @@ def load_wav(path: Union[str, Path], target_sr: Optional[int] = None,
 
 
 def resample_audio(wave: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resampling (scipy's Kaiser-windowed filter), in f32."""
+    """Polyphase resampling (scipy's Kaiser-windowed filter) in the native
+    FIR, in f32; a library that does not build raises."""
     if orig_sr == target_sr:
         return wave
-    wave = np.asarray(wave, np.float32)
     g = np.gcd(int(orig_sr), int(target_sr))
-    return resample_poly(wave, target_sr // g, orig_sr // g).astype(np.float32)
+    return resample_poly_native(wave, target_sr // g, orig_sr // g)
 
 
 def save_wav(path: Union[str, Path], wave: np.ndarray, sr: int) -> None:

@@ -16,8 +16,11 @@ Three kinds of checkpoint are read:
   (the JAX package's `init_params` draws from seed 0, through the weight
   bridge).
 The committed checkpoints are orbax directories, which only `jax` + `orbax`
-can read; the port runs where neither is installed. So an orbax checkpoint
-raises, naming the export it would need.
+can read; the port runs where neither is installed. The repository's
+`export_weights.py` writes their params-only exports into
+`checkpoints_torch/<model>`, which the port's default paths name
+(`config.PathConfig`). An orbax checkpoint named explicitly raises, naming
+that script; it never falls back to random weights.
 
 `remap_decoder_vocab` re-indexes a decoder's tree onto a rebuilt vocabulary
 (JAX :16-69), for `scripts/remap_decoder_warmstart.py`.
@@ -110,11 +113,11 @@ def load_params(what: str, model_path: Union[str, Path, None],
             return load_params_only(model_path)
         raise RuntimeError(
             f"{what} checkpoint {model_path} is in a format the port cannot "
-            "read (orbax needs jax + orbax). Export the parameter tree into "
-            "the port's params-only format (a directory holding params.npz, "
-            "etude_tpu_torch/utils/training.py) first; until the repository "
-            "holds such an export, real weights run only through the JAX "
-            "package.")
+            "read (orbax needs jax + orbax). Point the path at a params-only "
+            "export (a directory holding params.npz): the shipped models' are "
+            "in checkpoints_torch/<model>, the port's defaults; "
+            "`python export_weights.py`, run where jax and orbax are "
+            "installed, writes them from checkpoints/<model>/latest.ckpt.")
     if not allow_random_weights:
         raise FileNotFoundError(
             f"{what} checkpoint {model_path} not found; pass "

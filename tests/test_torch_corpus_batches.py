@@ -8,8 +8,8 @@ The JAX script's batch generators are closures inside its `run_*`
 functions: they are captured by patching the script module's `train_loop`
 (which the run calls with the generator, and which here stops the run),
 with the JAX `corpus_render.corpus_song_dirs` pointed at the synthetic
-corpus and its resampler on its scipy path (tests/test_torch_corpus_data.py
-says why). The port's tasks are built at narrow widths: the batches depend
+corpus and its resampler on its native path, the same kernel as the port's
+(tests/test_torch_corpus_data.py says why). The port's tasks are built at narrow widths: the batches depend
 only on the data settings. Steps are generated one after another in one
 thread on both sides; the corpus modes' generators are seeded by (seed,
 step), the others share one generator, as their prefetch threads do.
@@ -73,15 +73,12 @@ def script():
 
 @pytest.fixture
 def on_corpus(corpus, monkeypatch):
-    """Both packages read the synthetic corpus; the JAX resampler runs scipy."""
+    """Both packages read the synthetic corpus; the JAX resampler runs its
+    native kernel (no silent scipy fallback)."""
     monkeypatch.setattr(cr, "CORPUS_ROOT", corpus)
     songs = jax_cr.corpus_song_dirs
     monkeypatch.setattr(jax_cr, "corpus_song_dirs", lambda root=corpus: songs(root))
-
-    def unavailable(*args, **kwargs):
-        raise RuntimeError("native resampler disabled for the comparison")
-
-    monkeypatch.setattr(jax_native, "upfirdn_poly_native", unavailable)
+    assert jax_native.load_resample_library() is not None
     return corpus
 
 

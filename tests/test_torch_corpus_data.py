@@ -6,12 +6,12 @@ synthetic_corpus.py), plus mirrors of tests/test_pseudopop.py's stem
 renderer tests. The JAX scripts are imported through `sys.path`, as
 tests/test_pseudopop.py does.
 
-`render_serving` resamples 44.1 → 16 kHz: the JAX package evaluates scipy's
-filter in a native kernel when one is built, 3e-8 away from scipy's own
-result, and falls back to scipy otherwise; the port always runs scipy. Bit
-equality is held on the JAX fallback (its native entry point made to fail),
-and the native path within the resampling tolerance of
-tests/test_torch_separation.py (1e-5).
+`render_serving` resamples 44.1 → 16 kHz: both packages evaluate scipy's
+filter in a native kernel built from the same source with the same flags
+(the JAX package falls back to scipy when its kernel does not build; the
+port raises). Bit equality is held on the JAX package's native path (its
+library must load), and the JAX scipy fallback within the resampling
+tolerance of tests/test_torch_separation.py (1e-5).
 """
 
 import importlib.util
@@ -61,6 +61,12 @@ def script():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+@pytest.fixture
+def native_resample():
+    """The JAX resampler on its native path (no silent scipy fallback)."""
+    assert jax_native.load_resample_library() is not None
 
 
 @pytest.fixture
@@ -196,7 +202,7 @@ def test_corpus_note_pool_windows_are_bit_equal(corpus):
         same(ours.sample_window(r1, dur), ref.sample_window(r2, dur))
 
 
-def test_render_serving_matches_jax(corpus, scipy_resample):
+def test_render_serving_matches_jax(corpus, native_resample):
     pool = cr.CorpusNotePool(cr.split_songs(cr.corpus_song_dirs(corpus))[0])
     notes = pool.sample_window(np.random.default_rng(1), 3.0)
     straddling = [dict(n, onset=n["onset"] - 0.4) for n in notes]
@@ -204,7 +210,7 @@ def test_render_serving_matches_jax(corpus, scipy_resample):
         same(cr.render_serving(ns, 3.0), jax_cr.render_serving(ns, 3.0))
 
 
-def test_render_serving_near_the_native_resampler(corpus):
+def test_render_serving_near_the_native_resampler(corpus, scipy_resample):
     pool = cr.CorpusNotePool(cr.split_songs(cr.corpus_song_dirs(corpus))[0])
     notes = pool.sample_window(np.random.default_rng(2), 3.0)
     np.testing.assert_allclose(cr.render_serving(notes, 3.0),
