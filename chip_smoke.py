@@ -16,7 +16,14 @@ Phases, each announced with a flushed line when it starts and ends:
                     card at the main path's shapes, with timings (L2 flushed,
                     device time) beside its bound and a library call where
                     one exists, and at its designs' edge cases; two
-                    launches on the same inputs must give the same bits
+                    launches on the same inputs must give the same bits;
+                    the backward kernel K2b against autograd of K2's plain
+                    version at the training shape (B = 40, T = 512, all 9
+                    dilations) and the serving shape (B = 5, T = 12,288,
+                    three dilations), head7_bug both ways, timed, each
+                    beside a control (the gradient at another dilation)
+                    that it must catch, and K2's forward at the training
+                    shape
   4. serving        the streaming engine with the shipped decoder
                     (checkpoints_torch/decoder) over GREEDY_BARS real corpus
                     bars, 16 lockstep streams, greedy, then sampled over the
@@ -45,7 +52,8 @@ Phases, each announced with a flushed line when it starts and ends:
                     the card's bf16 head activations against the port's CPU
                     f32 path, beside controls it must catch (one attention
                     layer's output zeroed at a time), and the card's
-                    extract.json against the CPU's
+                    extract.json against the CPU's on the song's first
+                    NOTES_CLIP_SECONDS
   7. shipped        `etude_tpu_torch.infer --input` in-process on the song
                     from the default model paths (the shipped exports, each
                     params.npz's sha256 held to checkpoints_torch/
@@ -57,9 +65,20 @@ Phases, each announced with a flushed line when it starts and ends:
                     downbeats against the rendered grid, the bars and tempo
                     of tempo.json, tokens per bar and the share ended by
                     Bar_EOS, the wall of each stage; 9 K2 launches and K1
-                    launches a multiple of 8
-  8. prepare        `etude_tpu_torch.prepare --start-from preprocess`
-                    in-process on a two-song corpus synthesized from seeds
+                    launches a multiple of 8; then `--input SONG_URL` with
+                    the same settings and seed through YTDLP_STUB on PATH,
+                    a stand-in for yt-dlp that copies the song (no network):
+                    one call with the JAX package's argv, origin.wav the
+                    song bit for bit, the file run's checks, extract.json,
+                    tempo.json, beat_pred.json, volume.json and the MIDI
+                    equal to the file run's bit for bit; control: with no
+                    yt-dlp on PATH it exits 1 and writes no MIDI
+  8. prepare        `etude_tpu_torch.prepare` from its default `--start-from
+                    download`, in-process: stage 1 fetches a CSV's ids
+                    through YTDLP_STUB (the stub's argv, the warning's list
+                    of failed songs: the third, whose id it fails on; the
+                    raw/ tree the renders bit for bit), on a two-song corpus
+                    synthesized from seeds
                     (240 s origin.wav piano renders; cover.wav the same
                     notes transposed and time-warped), every model at full
                     width under random weights with PREP_THRESHOLDS: the
@@ -92,8 +111,8 @@ Phases, each announced with a flushed line when it starts and ends:
                     MIDI file that parses
  11. train          `etude_tpu_torch.train` in-process at the published decoder
                     widths on dataset_distill/tokenized (500 songs, 1024-token
-                    chunks) with configs/distill.yaml's train settings, 20
-                    steps, `latest` saved every 10, host syncs an error in
+                    chunks) with configs/distill.yaml's train settings, 10
+                    steps, `latest` saved every 5, host syncs an error in
                     the steady steps: dataset load time, median warm step,
                     tokens/s, peak memory, the step's operations, then a
                     profiled window (idle share, top operations); checks,
@@ -136,13 +155,7 @@ Phases, each announced with a flushed line when it starts and ends:
                     1, 2 and all ranks (and FSDP at all; its losses held
                     to one rank's): warm step, tokens/s, the collectives'
                     share of device time, peak memory per card
- 13. aux_train      the backward kernel K2b against autograd of K2's plain
-                    version at the training shape (B = 40, T = 512, all 9
-                    dilations) and the serving shape (B = 5, T = 12,288,
-                    three dilations), head7_bug both ways, timed, each
-                    beside a control (the gradient at another dilation)
-                    that it must catch, and K2's forward at the training
-                    shape; then `etude_tpu_torch.train_aux` in-process for
+ 13. aux_train      `etude_tpu_torch.train_aux` in-process for
                     beat, amt and separator at the published widths and
                     the script's batches and frames (AUX_CLI_STEPS: beat
                     30 steps, amt and separator 15), with 2
@@ -253,6 +266,17 @@ Phases, each announced with a flushed line when it starts and ends:
                     and the Beat-Transformer with 9 K2 launches with head
                     7's keys from head 6 (control: without the compat)
 
+After the kernels phase the phases run in two lanes, two processes on
+the one card, since each phase is bound by its host thread: this one runs
+serving, structuralize, extract, shipped, evaluate, cli, train, multigpu,
+recipe and options; the second (`chip_smoke.py --lane DIR T0`, started
+here, its output printed at the end) runs prepare, aux_train, corpus and
+decoder_corpus. A phase that needs another lane's output waits for it:
+evaluate for prepare's songs, decoder_corpus for the train phase's run,
+recipe for the aux_train phase's exports. Times taken beside the other
+lane (every phase's but the kernels phase's, whose timings the kernels
+line reports) share the card and the host's cores with it.
+
 It prints a `{"kernels": [...]}` line, whose launches are those of the
 serving, structuralize, shipped, prepare, cli, train, multigpu, aux_train,
 corpus, decoder_corpus, recipe and options runs,
@@ -328,6 +352,35 @@ NOTE_ONSET_ATOL, NOTE_PARITY_F1 = 256 / 16000, 0.98
 # no note and rarely end a bar): the onset F1 of extract.json against the
 # rendered notes, and the share of decoded bars that end at Bar_EOS.
 SHIPPED_MIN_F1, SHIPPED_MIN_EOS = 0.5, 0.5
+# The shipped phase's URL input and the prepare phase's stage 1 run through
+# YTDLP_STUB, a stand-in for yt-dlp that fetches nothing (it copies a local
+# file named for each URL), so no run touches the network. YTDLP_ARGV is
+# the command `utils/download.py` gives yt-dlp after its path, as the JAX
+# package's module gives it (tests/test_torch_download.py holds the two).
+YTDLP_ARGV = ("-f", "bestaudio", "--extract-audio", "--audio-format", "wav",
+              "-o", "{stem}.%(ext)s", "{url}")
+SONG_URL = "https://example.invalid/song"
+YTDLP_STUB = '''#!{python}
+"""A stand-in for yt-dlp that fetches nothing: it appends its argv to
+calls.jsonl beside it, then copies the file that sources.json beside it
+names for the URL (the last argument) to the -o template with %(ext)s made
+wav. A URL named there as null writes nothing; one not named fails with a
+line on stderr and exit 1."""
+import json
+import shutil
+import sys
+from pathlib import Path
+
+here = Path(__file__).resolve().parent
+with open(here / "calls.jsonl", "a", encoding="utf-8") as log:
+    log.write(json.dumps(sys.argv) + "\\n")
+url, template = sys.argv[-1], sys.argv[sys.argv.index("-o") + 1]
+sources = json.loads((here / "sources.json").read_text(encoding="utf-8"))
+if url not in sources:
+    sys.exit("ERROR: [generic] Unable to download " + url + ": no such source")
+if sources[url] is not None:
+    shutil.copyfile(sources[url], template.replace("%(ext)s", "wav"))
+'''
 # Card vs CPU separator-bypass features (no U-Net: the mix's f32 DFT and mel
 # on both), in dB.
 BYPASS_DB_ATOL = 1e-3
@@ -342,6 +395,13 @@ SONG_SECONDS = 240.0          # a 4-minute song: 10,336 frames at 44.1 kHz / 102
 # tracked at a slower tempo), and the clip of its first CLIP_SECONDS that
 # the card-vs-CPU checks run on.
 SHIPPED_EIGHTH, CLIP_SECONDS = 0.3, 30.0
+# The card-vs-CPU notes run on the song's first NOTES_CLIP_SECONDS: two
+# 512-frame segments, which the CPU's extractor takes as one group of
+# NOTES_CPU_GROUP (the same notes as in the production group of 8). A group
+# is padded to its size, so the full-width CPU extract in a group of 8 took
+# 61-63 s on the card's host for four segments or two; the 30 s clip in a
+# group of 8 was used until the URL run needed the room.
+NOTES_CLIP_SECONDS, NOTES_CPU_GROUP = 16.0, 2
 # The serving phase decodes its 24 corpus bars greedily (GREEDY_BARS; the
 # cache is C = 1217), then samples over the first SAMPLED_BARS: enough to
 # check both, and it keeps the whole run inside its time limit on a slow
@@ -370,8 +430,8 @@ CHROMA_ATOL, ONSET_ATOL = 1e-4, 2e-2
 # Card vs CPU warping paths of a 30 s pair: largest gap in frames (20 ms
 # each) and WPD gap in seconds.
 PATH_FRAMES, WPD_ATOL = 2, 5e-3
-# 20 steps (40 until PR 14, cut for the multigpu phase's time).
-TRAIN_STEPS, TRAIN_SAVE_EVERY = 20, 10
+# 10 steps (40, then 20, each cut to make room for a later phase).
+TRAIN_STEPS, TRAIN_SAVE_EVERY = 10, 5
 # 30 steps of the published decoder on one fixed micro-batch of 8 corpus
 # chunks (peak rate 2e-4 after 3 warmup steps) must lower its loss by this
 # fraction (4.68 -> 1.62, 65%, on an H100); at rate 0 the loss and every
@@ -1114,15 +1174,16 @@ def frontend_ab(extractor) -> None:
 
 
 def extract_parity(root: Path, wav: Path, model_path: Path, atol: float,
-                   notes: bool = False) -> None:
+                   notes: Optional[Path] = None) -> None:
     """The card's bf16 hFT heads against the port's CPU f32 path on the first
     segment of `wav`, same weights (`model_path`), within `atol`, beside
     controls it must
     catch: one attention layer's output zeroed at a time on the card. The
     card's f32 log-mel (TF32 off) against the CPU's is reported. With
-    `notes`, extract.json of the whole of `wav` too: the card's notes
-    against the CPU's, matched one to one by pitch with onsets within
-    NOTE_ONSET_ATOL, their F1 at least NOTE_PARITY_F1."""
+    `notes` (the song's first NOTES_CLIP_SECONDS), its extract.json too: the
+    card's notes against the CPU's (in groups of NOTES_CPU_GROUP segments),
+    matched one to one by pitch with onsets within NOTE_ONSET_ATOL, their F1
+    at least NOTE_PARITY_F1."""
     import numpy as np
     import torch
     import etude_tpu_torch.models.amt as amt
@@ -1130,15 +1191,16 @@ def extract_parity(root: Path, wav: Path, model_path: Path, atol: float,
     from etude_tpu_torch.data.extractor import AMTAPC_Extractor
     from etude_tpu_torch.evaluation.metrics.onset_f1 import onset_f1
 
-    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=model_path, device=device)
+    make = {device: AMTAPC_Extractor(ExtractorConfig(), model_path=model_path, device=device,
+                                     segment_batch=NOTES_CPU_GROUP if device == "cpu" else None)
             for device in ("cpu", "cuda")}
-    if notes:
+    if notes is not None:
         found = {}
         for device, x in make.items():
             t = time.perf_counter()
-            found[device] = x.extract(wav, root / f"extract_{device}.json")
-            check_notes(found[device], CLIP_SECONDS)
-            say(f"  extract.json of the {CLIP_SECONDS:.0f} s clip on the {device}: "
+            found[device] = x.extract(notes, root / f"extract_{device}.json")
+            check_notes(found[device], NOTES_CLIP_SECONDS)
+            say(f"  extract.json of the song's first {NOTES_CLIP_SECONDS:.0f} s on the {device}: "
                 f"{len(found[device])} notes in {time.perf_counter() - t:.2f} s")
         match = onset_f1(found["cpu"], found["cuda"], tolerance=NOTE_ONSET_ATOL)
         say(f"  card bf16 vs CPU f32 notes: F1 {match['f1']:.4f} ({match['n_match']} matched, "
@@ -1303,25 +1365,53 @@ def bar_stats(bars, eos: int, cap: int) -> str:
             f"{int((lengths >= cap).sum())} at the cap")
 
 
-def pipeline(root: Path, wav: Path, truth):
-    """`python -m etude_tpu_torch.infer --input` in-process on the song from
-    the default model paths (the shipped exports), without
-    --allow-random-weights, at the default 512-token bar cap; `truth` is the
-    rendered notes. Returns the work dir and the run's K1 and K2 launches."""
-    import numpy as np
+def ytdlp_stub(directory: Path, sources: dict) -> Path:
+    """YTDLP_STUB written as `directory`/yt-dlp, with `sources` ({URL: the
+    file to copy, or None to write nothing}) beside it; returns its call
+    log, emptied."""
+    directory.mkdir(parents=True, exist_ok=True)
+    stub = directory / "yt-dlp"
+    stub.write_text(YTDLP_STUB.replace("{python}", sys.executable), encoding="utf-8")
+    stub.chmod(0o755)
+    (directory / "sources.json").write_text(json.dumps(
+        {url: None if path is None else str(path) for url, path in sources.items()}))
+    log = directory / "calls.jsonl"
+    log.unlink(missing_ok=True)
+    return log
+
+
+def stub_calls(log: Path) -> list:
+    """The argv of every call of the stub, in order."""
+    return [json.loads(line) for line in log.read_text().splitlines()] if log.exists() else []
+
+
+def ytdlp_argv(stub: Path, output: Path, url: str) -> list:
+    """The argv that `download_audio_from_url(url, output)` runs yt-dlp with."""
+    return [str(stub)] + [a.format(stem=Path(output).with_suffix(""), url=url)
+                          for a in YTDLP_ARGV]
+
+
+@contextlib.contextmanager
+def search_path(directory: Path, keep: bool = True):
+    """`directory` first on PATH (with `keep` False, alone on it)."""
+    old = os.environ.get("PATH", "")
+    os.environ["PATH"] = str(directory) + (os.pathsep + old if keep else "")
+    try:
+        yield
+    finally:
+        os.environ["PATH"] = old
+
+
+def serve_input(settings: Path, source: str):
+    """`infer --input source --output_name pipeline --seed 7` in-process;
+    returns (exit code, wall s, K1 launches, K2 launches, spans, the decoded
+    bars as `recorded_bars` keeps them)."""
     import torch
     from etude_tpu_torch import infer
-    from etude_tpu_torch.config import PathConfig
-    from etude_tpu_torch.data.synthetic import beat_f_measure
-    from etude_tpu_torch.evaluation.metrics.onset_f1 import onset_f1
     from etude_tpu_torch.ops.decode_attention import decode_attention
     from etude_tpu_torch.ops.dilated_attention import dilated_attention
-    from etude_tpu_torch.utils.midi import read_midi_notes
     from etude_tpu_torch.utils.profiling import StageTimer
 
-    shipped_weights(PathConfig())
-    resample_timing(wav)
-    settings = serve_settings(root)
     spans, seen = {}, {}
     print_summary = StageTimer.print_summary
     StageTimer.print_summary = lambda self, title="": spans.update(self.summary())
@@ -1330,15 +1420,27 @@ def pipeline(root: Path, wav: Path, truth):
     t = time.perf_counter()
     try:
         with recorded_bars(seen):
-            rc = infer.main(["--config", str(settings), "--input", str(wav),
+            rc = infer.main(["--config", str(settings), "--input", source,
                              "--output_name", "pipeline", "--seed", "7"])
     finally:
         StageTimer.print_summary = print_summary
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    k1, k2 = decode_attention.launches, dilated_attention.launches
-    work = root / "outputs" / "infer" / "temp"
-    midi = root / "outputs" / "infer" / "pipeline.mid"
+    return (rc, time.perf_counter() - t, decode_attention.launches,
+            dilated_attention.launches, spans, seen)
+
+
+def check_served(out: Path, rc: int, k1: int, k2: int, seen: dict, truth) -> None:
+    """What an `--input` run of the song is held to (`out` its
+    infer_output_dir): exit 0, five well-formed outputs, the notes' onset F1
+    against the rendered `truth` and the share of bars ended by Bar_EOS at
+    least SHIPPED_MIN_F1 and SHIPPED_MIN_EOS, 9 K2 launches and K1 launches
+    a multiple of 8; prints what it read."""
+    import numpy as np
+    from etude_tpu_torch.data.synthetic import beat_f_measure
+    from etude_tpu_torch.evaluation.metrics.onset_f1 import onset_f1
+    from etude_tpu_torch.utils.midi import read_midi_notes
+
+    work, midi = out / "temp", out / "pipeline.mid"
     if rc != 0 or not midi.exists():
         raise RuntimeError(f"infer --input exited {rc}; {midi} exists: {midi.exists()}")
     notes = json.loads((work / "extract.json").read_text())
@@ -1353,10 +1455,9 @@ def pipeline(root: Path, wav: Path, truth):
     tempo = json.loads((work / "tempo.json").read_text())
     check_tempo(tempo, SONG_SECONDS)
     played = read_midi_notes(midi)
-    say(f"  --input {wav.name} from the shipped exports (no random-weight flag): wall "
-        f"{wall:.3f} s; {midi.name}: {midi.stat().st_size} bytes, {len(played)} notes; "
-        f"launches K1 {k1}, K2 {k2} (expected 9)")
     f1 = onset_f1(truth, notes)
+    say(f"  {midi.name}: {midi.stat().st_size} bytes, {len(played)} notes; launches K1 {k1}, "
+        f"K2 {k2} (expected 9)")
     say(f"  extract.json: {len(notes)} notes; onset F1 against the {len(truth)} rendered "
         f"notes (50 ms, pitch exact) {f1['f1']:.4f} (precision {f1['precision']:.4f}, "
         f"recall {f1['recall']:.4f})")
@@ -1370,8 +1471,6 @@ def pipeline(root: Path, wav: Path, truth):
                     for r in tempo)
         + f" (rendered: 4/4 at {30.0 / SHIPPED_EIGHTH:.2f} BPM)")
     say(f"  decode: {bar_stats(seen['bars'], seen['eos'], seen['cap'])}")
-    for name, seconds in spans.items():
-        say(f"    {name:<26s} {1e3 * seconds:10.2f} ms")
     ended = sum(1 for b in seen["bars"] if b[-1] == seen["eos"]) / max(len(seen["bars"]), 1)
     if f1["f1"] < SHIPPED_MIN_F1 or ended < SHIPPED_MIN_EOS:
         raise RuntimeError(f"the shipped weights gave an onset F1 of {f1['f1']:.3f} and "
@@ -1380,7 +1479,82 @@ def pipeline(root: Path, wav: Path, truth):
         raise RuntimeError(f"dilated_attention launched {k2} times, expected 9")
     if k1 == 0 or k1 % 8:
         raise RuntimeError(f"decode_attention launched {k1} times, not 8 per S=1 chunk")
-    return work, k1, k2
+
+
+def pipeline(root: Path, wav: Path, truth):
+    """`python -m etude_tpu_torch.infer --input` in-process on the song from
+    the default model paths (the shipped exports), without
+    --allow-random-weights, at the default 512-token bar cap; `truth` is the
+    rendered notes. Returns the work dir and the run's K1 and K2 launches."""
+    from etude_tpu_torch.config import PathConfig
+
+    shipped_weights(PathConfig())
+    resample_timing(wav)
+    rc, wall, k1, k2, spans, seen = serve_input(serve_settings(root), str(wav))
+    say(f"  --input {wav.name} from the shipped exports (no random-weight flag): wall "
+        f"{wall:.3f} s")
+    check_served(root / "outputs" / "infer", rc, k1, k2, seen, truth)
+    for name, seconds in spans.items():
+        say(f"    {name:<26s} {1e3 * seconds:10.2f} ms")
+    return root / "outputs" / "infer" / "temp", k1, k2
+
+
+# What a URL run must give as the file run gave it (the work dir's files and
+# the MIDI); the volume map and beat_pred.json are compared too.
+SERVED_FILES = ("temp/extract.json", "temp/tempo.json", "pipeline.mid",
+                "temp/beat_pred.json", "temp/volume.json")
+
+
+def served_files(out: Path) -> dict:
+    return {name: (out / name).read_bytes() for name in SERVED_FILES}
+
+
+def url_input(root: Path, wav: Path, file_out: Path, truth):
+    """`infer --input SONG_URL` in-process through YTDLP_STUB (which copies
+    the song) with the file run's settings and seed (`file_out` its
+    infer_output_dir): the stub ran once with the JAX package's argv, the
+    work dir's origin.wav is the song bit for bit, the run passes the file
+    run's checks and its SERVED_FILES equal the file run's bit for bit (a
+    run of the song on one card repeats itself bit for bit on an H100).
+    Control: with no yt-dlp on PATH the same call exits 1 and writes no
+    MIDI. Returns the URL run's K1 and K2 launches."""
+    from etude_tpu_torch import infer
+
+    log = ytdlp_stub(root / "bin", {SONG_URL: wav})
+    out = root / "url" / "outputs" / "infer"
+    with search_path(log.parent):
+        rc, wall, k1, k2, _, seen = serve_input(serve_settings(root / "url"), SONG_URL)
+    calls = stub_calls(log)
+    say(f"  --input {SONG_URL} through the yt-dlp stand-in: wall {wall:.3f} s, "
+        f"{len(calls)} call(s) of the stub: {calls}")
+    want = [ytdlp_argv(log.parent / "yt-dlp", out / "temp" / "origin.wav", SONG_URL)]
+    if calls != want:
+        raise RuntimeError(f"yt-dlp ran with {calls}, expected {want}")
+    if (out / "temp" / "origin.wav").read_bytes() != wav.read_bytes():
+        raise RuntimeError("the URL run's origin.wav is not the song")
+    check_served(out, rc, k1, k2, seen, truth)
+    first, got = served_files(file_out), served_files(out)
+    differ = [n for n in SERVED_FILES if got[n] != first[n]]
+    say(f"  URL run against the file run: origin.wav equal; differ in {differ or 'nothing'} "
+        f"of {list(SERVED_FILES)}")
+    if differ:
+        raise RuntimeError(f"the URL run differs from the file run in {differ}")
+
+    control = root / "control"
+    (root / "empty").mkdir()
+    t = time.perf_counter()
+    with search_path(root / "empty", keep=False):
+        try:
+            code = infer.main(["--config", str(serve_settings(control)), "--input", SONG_URL,
+                               "--output_name", "pipeline", "--seed", "7"])
+        except SystemExit as exc:
+            code = exc.code
+    written = sorted(str(p.relative_to(control)) for p in control.rglob("*.mid"))
+    say(f"  control, no yt-dlp on PATH: exit {code} in {time.perf_counter() - t:.3f} s, "
+        f"MIDI written {written}, stub calls {len(stub_calls(log)) - len(calls)}")
+    if code != 1 or written or len(stub_calls(log)) != len(calls):
+        raise RuntimeError("without yt-dlp the URL run did not exit 1 before writing a MIDI")
+    return k1, k2
 
 
 PREP_SONGS = ((10, 2, 0.2), (11, -3, 0.1))   # (seed, transposition, cover offset in s)
@@ -1425,13 +1599,59 @@ def render_pair(seed, seconds, transpose, offset, origin_sr=ORIGIN_SR, bump=None
             render_piano(cover_notes, cover_warp(seconds, offset) + 0.5, sr=ALIGN_SR))
 
 
+# The id of the prepare phase's third song, which the yt-dlp stand-in fails
+# on (in both columns), so stage 1 warns of it and stages 2-5 leave it out.
+PREP_BAD_ID = "unavailable"
+
+
+@contextlib.contextmanager
+def recorded_warnings(seen: list):
+    """Keep the port's logger's warnings in `seen` (still printed)."""
+    from etude_tpu_torch.utils.logger import logger
+
+    warn = logger.warn
+    logger.warn = lambda msg: (seen.append(msg), warn(msg))
+    try:
+        yield seen
+    finally:
+        del logger.warn
+
+
+def check_downloads(root: Path, log: Path, rows, sources: dict, warnings) -> None:
+    """Stage 1 of the prepare phase: the stub ran once per id, in the CSV's
+    order, with the JAX package's argv; raw/NNNN/{cover,origin}.wav are the
+    renders bit for bit; the third song's dir is empty and the warning names
+    it alone."""
+    from etude_tpu_torch import prepare
+
+    want = [ytdlp_argv(log.parent / "yt-dlp", root / "raw" / f"{k + 1:04d}" / name,
+                       prepare.YOUTUBE_URL + row[j])
+            for k, row in enumerate(rows) for j, (_, name) in enumerate(prepare.DOWNLOADS)]
+    calls = stub_calls(log)
+    failed = [w for w in warnings if "downloads failed" in w]
+    say(f"  stage 1: {len(calls)} calls of the stub ({sum(c == w for c, w in zip(calls, want))} "
+        f"with the expected argv), warnings {failed}")
+    if calls != want:
+        raise RuntimeError(f"yt-dlp ran with {calls}, expected {want}")
+    if failed != [f"1 downloads failed: {len(rows):04d}"]:
+        raise RuntimeError(f"stage 1 warned {failed}, expected song {len(rows):04d} alone")
+    for k, row in enumerate(rows[:-1]):
+        for j, (_, name) in enumerate(prepare.DOWNLOADS):
+            got = root / "raw" / f"{k + 1:04d}" / name
+            if got.read_bytes() != sources[prepare.YOUTUBE_URL + row[j]].read_bytes():
+                raise RuntimeError(f"{got} is not the render it was fetched from")
+    if list((root / "raw" / f"{len(rows):04d}").iterdir()):
+        raise RuntimeError(f"song {len(rows):04d} failed but its raw dir is not empty")
+
+
 def prepare_settings(root: Path) -> Path:
-    """The corpus dirs under `root`, every model path missing (random
-    weights from seed 0) and PREP_THRESHOLDS."""
+    """The dataset CSV and the corpus dirs under `root`, every model path
+    missing (random weights from seed 0) and PREP_THRESHOLDS."""
     settings = root / "prepare.json"
     settings.write_text(json.dumps({
-        "paths": {"raw_dir": str(root / "raw"), "processed_dir": str(root / "processed"),
-                  "aligned_dir": str(root / "aligned"), "tokenized_dir": str(root / "tokenized"),
+        "paths": {"dataset_csv": str(root / "dataset.csv"), "raw_dir": str(root / "raw"),
+                  "processed_dir": str(root / "processed"), "aligned_dir": str(root / "aligned"),
+                  "tokenized_dir": str(root / "tokenized"),
                   "dataset_vocab": str(root / "vocab.json"),
                   "hft_model": str(root / "no_hft.ckpt"),
                   "separator_model": str(root / "no_separator.ckpt"),
@@ -1717,12 +1937,16 @@ def hft_parity() -> None:
 
 
 def prepare_phase(root: Path) -> int:
-    """`python -m etude_tpu_torch.prepare --start-from preprocess` in-process
-    on a synthesized two-song corpus at 240 s, at full width under random
-    weights (PREP_THRESHOLDS), with the spans of every stage and song (song
-    0001 is cold, 0002 warm: stage 2 makes its models once); then the
-    wavefront and the hFT timed alone and the card-against-CPU checks.
-    Returns the run's K2 launches."""
+    """`python -m etude_tpu_torch.prepare` in-process from its default
+    `--start-from download` on a synthesized two-song corpus at 240 s, at
+    full width under random weights (PREP_THRESHOLDS), with the spans of
+    every stage and song (song 0001 is cold, 0002 warm: stage 2 makes its
+    models once). Stage 1 reads a CSV of the two songs' ids and a third
+    song's (PREP_BAD_ID in both columns) and fetches each through
+    YTDLP_STUB, which copies the renders and fails on PREP_BAD_ID: the
+    stub's calls, the warning's failed list and the raw/ tree are checked.
+    Then the wavefront and the hFT timed alone and the card-against-CPU
+    checks. Returns the run's K2 launches."""
     import torch
     from etude_tpu_torch import prepare
     from etude_tpu_torch.ops.dilated_attention import dilated_attention
@@ -1730,29 +1954,40 @@ def prepare_phase(root: Path) -> int:
     from etude_tpu_torch.utils.profiling import StageTimer
 
     t = time.perf_counter()
-    for k, (seed, transpose, offset) in enumerate(PREP_SONGS):
+    sources, rows = {}, []
+    for seed, transpose, offset in PREP_SONGS:
         origin, cover = render_pair(seed, SONG_SECONDS, transpose, offset)
-        save_wav(root / "raw" / f"{k + 1:04d}" / "origin.wav", origin, ORIGIN_SR)
-        save_wav(root / "raw" / f"{k + 1:04d}" / "cover.wav", cover, ALIGN_SR)
+        ids = (f"cover{seed}", f"origin{seed}")
+        save_wav(root / "sources" / f"{ids[0]}.wav", cover, ALIGN_SR)
+        save_wav(root / "sources" / f"{ids[1]}.wav", origin, ORIGIN_SR)
+        sources.update({prepare.YOUTUBE_URL + i: root / "sources" / f"{i}.wav" for i in ids})
+        rows.append(ids)
+    rows.append((PREP_BAD_ID, PREP_BAD_ID))
+    (root / "dataset.csv").write_text(
+        "piano_ids,pop_ids\n" + "".join(f"{a},{b}\n" for a, b in rows))
+    log = ytdlp_stub(root / "bin", sources)
     say(f"  corpus: {len(PREP_SONGS)} songs, {SONG_SECONDS:.0f} s origin.wav at {ORIGIN_SR} Hz, "
         f"cover.wav transposed {[s[1] for s in PREP_SONGS]} and warped ±{WARP_SECONDS} s at "
-        f"{ALIGN_SR} Hz (set-up {time.perf_counter() - t:.2f} s); settings {PREP_THRESHOLDS}")
+        f"{ALIGN_SR} Hz, and {PREP_BAD_ID!r}, which the stub fails on, in dataset.csv "
+        f"(set-up {time.perf_counter() - t:.2f} s); settings {PREP_THRESHOLDS}")
     settings = prepare_settings(root)
     timer = StageTimer(torch.device("cuda"))
+    warnings = []
     dilated_attention.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
-    rc = prepare.main(["--config", str(settings), "--start-from", "preprocess",
-                       "--allow-random-weights"], timer=timer)
+    with search_path(log.parent), recorded_warnings(warnings):
+        rc = prepare.main(["--config", str(settings), "--allow-random-weights"], timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dilated_attention.launches
-    say(f"  prepare --start-from preprocess: rc {rc}, wall {wall:.3f} s, K2 launches "
+    say(f"  prepare (from --start-from download): rc {rc}, wall {wall:.3f} s, K2 launches "
         f"{launches} (expected {9 * len(PREP_SONGS)})")
     for span in timer.spans:
         say(f"    {span['name']:<40s} {1e3 * span['seconds']:10.2f} ms")
     if rc != 0:
         raise RuntimeError(f"prepare exited {rc}")
+    check_downloads(root, log, rows, sources, warnings)
     if launches != 9 * len(PREP_SONGS):
         raise RuntimeError(f"dilated_attention launched {launches} times in stage 2, expected "
                            f"9 per song")
@@ -2571,12 +2806,9 @@ def aux_serve(root: Path, exports: Path) -> int:
     return k2
 
 
-def aux_train_phase(root: Path, flush):
-    """The aux_train phase; returns (K2 launches, K2b launches, K2b rows,
-    the exports' directory, each mode's device ms per warm step)."""
-    import torch
-
-    # K2's forward at the training shape first: its backward rests on it.
+def backward_kernel_rows(flush) -> list:
+    """K2b against its plain version (K2's forward at the training shape
+    first: the backward rests on it); returns the K2b rows."""
     for i in range(9):
         check_dilated(40, 512, 2 ** i, 300 + i, flush)
     rows = [check_dilated_backward(40, 512, 2 ** i, 400 + i, flush) for i in range(9)]
@@ -2587,6 +2819,13 @@ def aux_train_phase(root: Path, flush):
     say(f"  K2b, one beat training step at B=40 T=512 (9 calls, 9 launches): kernel "
         f"{sum(r['ms'] for r in train):.4f} ms, plain {sum(r['plain_ms'] for r in train):.4f} ms, "
         f"bound {sum(r['bound_ms'] for r in train):.4f} ms")
+    return rows
+
+
+def aux_train_phase(root: Path):
+    """The aux_train phase; returns (K2 launches, K2b launches, the exports'
+    directory, each mode's device ms per warm step)."""
+    import torch
 
     exports = root / "exports"
     k2 = k2b = 0
@@ -2601,7 +2840,7 @@ def aux_train_phase(root: Path, flush):
         aux_parity(mode)
         torch.cuda.empty_cache()
     k2 += aux_serve(root / "serve", exports)
-    return k2, k2b, rows, exports, device_ms
+    return k2, k2b, exports, device_ms
 
 
 # ---------------------------------------------------------------- corpus
@@ -4771,6 +5010,191 @@ def multigpu_phase(root: Path, config, vocab, serve_config, serve_vocab) -> int:
     return launches
 
 
+# ----------------------------------------------------------------- lanes
+# The prepare, aux_train, corpus and decoder_corpus phases run in a second
+# process (`chip_smoke.py --lane DIR T0`), beside the others: each phase is
+# bound by its host thread launching small kernels, so the card and the
+# host's cores have room for two. The lanes share the work dir and hand
+# each other what one needs from the other as small JSON files in it.
+LANE_WAIT_SECONDS = 1200.0
+
+
+def handoff(path: Path, value: dict) -> None:
+    part = path.with_name(path.name + ".part")
+    part.write_text(json.dumps(value))
+    part.replace(path)
+
+
+def await_handoff(path: Path, lane=None) -> dict:
+    """Waits for `path` (written by `handoff`) and returns what it holds;
+    raises if `lane`, the second lane's process, exits first."""
+    deadline = time.monotonic() + LANE_WAIT_SECONDS
+    while not path.exists():
+        if lane is not None and lane.poll() is not None:
+            raise RuntimeError(f"the second lane exited {lane.returncode} before {path.name}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {path.name} after {LANE_WAIT_SECONDS:.0f} s")
+        time.sleep(0.5)
+    return json.loads(path.read_text())
+
+
+def start_lane(tmp: Path):
+    """Starts the second lane in its own session, its output to
+    tmp/lane.log; it is killed if this process dies."""
+    import ctypes
+    import signal
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    with open(tmp / "lane.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--lane", str(tmp), repr(T0)],
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+            preexec_fn=lambda: libc.prctl(1, signal.SIGKILL))   # PR_SET_PDEATHSIG
+
+
+def stop_lane(lane, tmp: Path) -> None:
+    """Kills the second lane's session if it still runs, and prints its log."""
+    import signal
+
+    if lane.poll() is None:
+        os.killpg(lane.pid, signal.SIGKILL)
+        lane.wait()
+    say(f"[lane] the second lane's output (exit {lane.returncode}):")
+    say((tmp / "lane.log").read_text().rstrip())
+    say("[lane] end of the second lane's output")
+
+
+def lane_main(tmp: Path) -> int:
+    """The second lane: prepare, aux_train, corpus, then decoder_corpus once
+    the train phase's run is handed over. Hands over aux.json (the aux
+    exports, for the recipe phase), prepared.json (for the evaluate phase)
+    and, last, lane.json (its launches)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    os.chdir(ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with phase("prepare"):
+        k2 = prepare_phase(tmp / "prepare")
+    handoff(tmp / "prepared.json", {"root": str(tmp / "prepare")})
+    with phase("aux_train"):
+        a, k2b, exports, device_ms = aux_train_phase(tmp / "aux")
+        k2 += a
+    handoff(tmp / "aux.json", {"exports": str(exports)})
+    with phase("corpus"):
+        a, b = corpus_phase(tmp / "corpus", exports, device_ms)
+        k2, k2b = k2 + a, k2b + b
+    trained = Path(await_handoff(tmp / "trained.json")["run_dir"])
+    with phase("decoder_corpus"):
+        k1, a = decoder_corpus_phase(tmp / "decoder_corpus", exports, trained)
+        k2 += a
+    handoff(tmp / "lane.json", {"k1": k1, "k2": k2, "k2b": k2b})
+    return 0
+
+
+def first_lane(tmp: Path, lane, shipped, config, vocab, engine, bars, attrs, main_C):
+    """The phases beside the second lane, in order: serving, structuralize,
+    extract, shipped, evaluate (once the second lane's prepare phase is
+    done), cli, train (its run handed over for decoder_corpus), multigpu,
+    recipe (once the aux exports are handed over), options. Returns the
+    (K1, K2) launches of its runs."""
+    from etude_tpu_torch.data.vocab import Vocab
+    from etude_tpu_torch.utils.model_loader import load_etude_decoder
+
+    with phase("serving"):
+        model, _ = load_etude_decoder(shipped.decoder_config, shipped.decoder_model,
+                                      device="cuda")
+        say(f"  decoder (shipped): {sum(p.numel() for p in model.parameters())} parameters, "
+            f"{len(bars)} corpus bars, 16 streams, cache C = {main_C}")
+        say(f"  host: {host_launch_us():.2f} us per eager launch (1-element add)")
+        launches = 0
+        for kw, n_bars in (({"temperature": 0.0}, GREEDY_BARS),
+                           ({"temperature": 1.0, "top_p": 0.9, "seed": 1234}, SAMPLED_BARS)):
+            outs, n = serve(engine, model, bars[:n_bars], attrs, **kw)
+            check_streams(outs, n_bars, vocab.bar_bos_id, vocab.bar_eos_id,
+                          config.vocab_size, engine.max_bar_token_limit)
+            launches += n
+        profile_window(model, config, vocab, bars, attrs)
+        chunk_parity(model, config, bars, {"pitch_overlap": 2, "polyphony": 1,
+                                           "sustain": 1, "rhythm_intensity": 1})
+
+    song, clip = tmp / "song_240s.wav", tmp / "song_30s.wav"
+    truth = write_song(song, SONG_SECONDS)
+    write_song(clip, CLIP_SECONDS)
+    notes_clip = tmp / "song_notes.wav"
+    write_song(notes_clip, NOTES_CLIP_SECONDS)
+    say(f"  the song: {len(truth)} notes of seed 0's grid_song at {30.0 / SHIPPED_EIGHTH:.0f} "
+        f"BPM over {SONG_SECONDS:.0f} s, {song.stat().st_size} bytes of 16-bit PCM")
+    with phase("structuralize"):
+        k2_launches = structuralize(tmp / "stage2", song)
+        stage2_parity(tmp, clip)
+
+    with phase("extract"):
+        extract(tmp / "stage1", song)
+        extract_parity(tmp, clip, shipped.extractor_model, SHIPPED_HFT_ATOL,
+                       notes=notes_clip)
+
+    with phase("shipped"):
+        work, k1, k2 = pipeline(tmp / "pipeline", song, truth)
+        launches += k1
+        k2_launches += k2
+        t = time.perf_counter()
+        k1, k2 = url_input(tmp / "url", song, tmp / "pipeline" / "outputs" / "infer", truth)
+        say(f"  the URL checks: {time.perf_counter() - t:.2f} s")
+        launches += k1
+        k2_launches += k2
+
+    prepared = Path(await_handoff(tmp / "prepared.json", lane)["root"])
+    with phase("evaluate"):
+        evaluate_phase(tmp / "evaluate", prepared,
+                       tmp / "pipeline" / "outputs" / "infer" / "pipeline.mid")
+
+    with phase("cli"):
+        from etude_tpu_torch import infer
+        from etude_tpu_torch.ops.decode_attention import decode_attention
+        from etude_tpu_torch.utils.midi import read_midi_notes
+
+        settings = cli_work_dir(tmp / "cli", work, 30.0)
+        decode_attention.launches = 0
+        rc = infer.main(["--config", str(settings), "--decode-only",
+                         "--output_name", "smoke", "--seed", "7"])
+        launches += decode_attention.launches
+        out = tmp / "cli" / "outputs" / "infer" / "smoke.mid"
+        if rc != 0 or not out.exists():
+            raise RuntimeError(f"infer exited {rc}; {out} exists: {out.exists()}")
+        notes = read_midi_notes(out)
+        say(f"  {out.name}: {out.stat().st_size} bytes, {len(notes)} notes; K1 launches "
+            f"{decode_attention.launches}")
+
+    with phase("train"):
+        k1, trained = train_phase(tmp / "train", tmp / "cli")
+        launches += k1
+    handoff(tmp / "trained.json", {"run_dir": str(trained)})
+
+    with phase("multigpu"):
+        from etude_tpu_torch.config import load_config
+        from etude_tpu_torch.train import build_model_config
+
+        distill_vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
+        distill = build_model_config(load_config(None), len(distill_vocab))
+        launches += multigpu_phase(tmp / "multigpu", distill, distill_vocab, config, vocab)
+
+    exports = Path(await_handoff(tmp / "aux.json", lane)["exports"])
+    with phase("recipe"):
+        launches += recipe_phase(tmp / "recipe", trained, exports / "separator" / "latest",
+                                 tmp / "cli")
+
+    with phase("options"):
+        from etude_tpu_torch.utils.kernel_bench import L2Flush
+
+        k1, k2 = options_phase(tmp / "options", tmp / "cli", model, config, vocab, bars,
+                               attrs, L2Flush())
+        launches += k1
+        k2_launches += k2
+    return launches, k2_launches
+
+
 def main() -> int:
     import torch
 
@@ -4821,7 +5245,6 @@ def main() -> int:
     from etude_tpu_torch.data.vocab import Vocab
     from etude_tpu_torch.models.decoder import EtudeDecoderConfig
     from etude_tpu_torch.models.generate_stream import StreamingGenerationEngine
-    from etude_tpu_torch.utils.model_loader import load_etude_decoder
 
     config = EtudeDecoderConfig.from_json_file(
         ROOT / "checkpoints/decoder/etude_decoder_config.json")
@@ -4871,109 +5294,28 @@ def main() -> int:
             f"{sum(r['ms'] for r in k2_main):.4f} ms, plain "
             f"{sum(r['plain_ms'] for r in k2_main):.4f} ms, bound "
             f"{sum(r['bound_ms'] for r in k2_main):.4f} ms")
+        k2b_rows = backward_kernel_rows(flush)
         del flush
-
-    with phase("serving"):
-        model, _ = load_etude_decoder(shipped.decoder_config, shipped.decoder_model,
-                                      device="cuda")
-        say(f"  decoder (shipped): {sum(p.numel() for p in model.parameters())} parameters, "
-            f"{len(bars)} corpus bars, 16 streams, cache C = {main_C}")
-        say(f"  host: {host_launch_us():.2f} us per eager launch (1-element add)")
-        launches = 0
-        for kw, n_bars in (({"temperature": 0.0}, GREEDY_BARS),
-                           ({"temperature": 1.0, "top_p": 0.9, "seed": 1234}, SAMPLED_BARS)):
-            outs, n = serve(engine, model, bars[:n_bars], attrs, **kw)
-            check_streams(outs, n_bars, vocab.bar_bos_id, vocab.bar_eos_id,
-                          config.vocab_size, engine.max_bar_token_limit)
-            launches += n
-        profile_window(model, config, vocab, bars, attrs)
-        chunk_parity(model, config, bars, {"pitch_overlap": 2, "polyphony": 1,
-                                           "sustain": 1, "rhythm_intensity": 1})
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        song, clip = tmp / "song_240s.wav", tmp / "song_30s.wav"
-        truth = write_song(song, SONG_SECONDS)
-        write_song(clip, CLIP_SECONDS)
-        say(f"  the song: {len(truth)} notes of seed 0's grid_song at {30.0 / SHIPPED_EIGHTH:.0f} "
-            f"BPM over {SONG_SECONDS:.0f} s, {song.stat().st_size} bytes of 16-bit PCM")
-        with phase("structuralize"):
-            k2_launches = structuralize(tmp / "stage2", song)
-            stage2_parity(tmp, clip)
-
-        with phase("extract"):
-            extract(tmp / "stage1", song)
-            extract_parity(tmp, clip, shipped.extractor_model, SHIPPED_HFT_ATOL, notes=True)
-
-        with phase("shipped"):
-            work, k1, k2 = pipeline(tmp / "pipeline", song, truth)
-            launches += k1
-            k2_launches += k2
-
-        with phase("prepare"):
-            k2_launches += prepare_phase(tmp / "prepare")
-
-        with phase("evaluate"):
-            evaluate_phase(tmp / "evaluate", tmp / "prepare",
-                           tmp / "pipeline" / "outputs" / "infer" / "pipeline.mid")
-
-        with phase("cli"):
-            from etude_tpu_torch import infer
-            from etude_tpu_torch.ops.decode_attention import decode_attention
-            from etude_tpu_torch.utils.midi import read_midi_notes
-
-            settings = cli_work_dir(tmp / "cli", work, 30.0)
-            decode_attention.launches = 0
-            rc = infer.main(["--config", str(settings), "--decode-only",
-                             "--output_name", "smoke", "--seed", "7"])
-            launches += decode_attention.launches
-            out = tmp / "cli" / "outputs" / "infer" / "smoke.mid"
-            if rc != 0 or not out.exists():
-                raise RuntimeError(f"infer exited {rc}; {out} exists: {out.exists()}")
-            notes = read_midi_notes(out)
-            say(f"  {out.name}: {out.stat().st_size} bytes, {len(notes)} notes; K1 launches "
-                f"{decode_attention.launches}")
-
-        with phase("train"):
-            k1, trained = train_phase(tmp / "train", tmp / "cli")
-            launches += k1
-
-        with phase("multigpu"):
-            from etude_tpu_torch.config import load_config
-            from etude_tpu_torch.train import build_model_config
-
-            distill_vocab = Vocab.load(ROOT / "dataset_distill/vocab.json")
-            distill = build_model_config(load_config(None), len(distill_vocab))
-            launches += multigpu_phase(tmp / "multigpu", distill, distill_vocab, config, vocab)
-
-        with phase("aux_train"):
-            from etude_tpu_torch.utils.kernel_bench import L2Flush
-
-            aux_k2, k2b_launches, k2b_rows, exports, device_ms = aux_train_phase(tmp / "aux",
-                                                                                 L2Flush())
-            k2_launches += aux_k2
-            separator = exports / "separator" / "latest"
-
-        with phase("corpus"):
-            corpus_k2, corpus_k2b = corpus_phase(tmp / "corpus", exports, device_ms)
-            k2_launches += corpus_k2
-            k2b_launches += corpus_k2b
-
-        with phase("decoder_corpus"):
-            k1, k2 = decoder_corpus_phase(tmp / "decoder_corpus", exports, trained)
-            launches += k1
-            k2_launches += k2
-
-        with phase("recipe"):
-            launches += recipe_phase(tmp / "recipe", trained, separator, tmp / "cli")
-
-        with phase("options"):
-            from etude_tpu_torch.utils.kernel_bench import L2Flush
-
-            k1, k2 = options_phase(tmp / "options", tmp / "cli", model, config, vocab, bars,
-                                   attrs, L2Flush())
-            launches += k1
-            k2_launches += k2
+        lane = start_lane(tmp)
+        say(f"[lane] the second lane (prepare, aux_train, corpus, decoder_corpus) started: "
+            f"pid {lane.pid}, output at the end")
+        try:
+            launches, k2_launches = first_lane(
+                tmp, lane, shipped, config, vocab, engine, bars, attrs, main_C)
+            t = time.perf_counter()
+            counts = await_handoff(tmp / "lane.json", lane)
+            if lane.wait() != 0:
+                raise RuntimeError(f"the second lane exited {lane.returncode}")
+            say(f"[lane] waited {time.perf_counter() - t:.2f} s for the second lane "
+                f"(t={time.perf_counter() - T0:.1f}s)")
+        finally:
+            stop_lane(lane, tmp)
+        launches += counts["k1"]
+        k2_launches += counts["k2"]
+        k2b_launches = counts["k2b"]
 
     main_row = rows[len(shapes) - 1]
     k2b_train = [r for r in k2b_rows if r["T"] == 512 and not r["head7_bug"]]
@@ -5025,4 +5367,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lane"]:
+        T0 = float(sys.argv[3])
+        sys.exit(lane_main(Path(sys.argv[2])))
     sys.exit(main())

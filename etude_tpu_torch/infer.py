@@ -1,14 +1,16 @@
 """Piano-cover generation on one GPU:
-`python -m etude_tpu_torch.infer --input song.wav [--device cpu] ...` or
+`python -m etude_tpu_torch.infer --input song.wav|URL [--device cpu] ...` or
 `... --decode-only ...`.
 
 The port of the repository's `infer.py`. `--input` runs the whole pipeline
-(`run` :283-352): the audio is copied into the work dir as `origin.wav` and
-decoded once; Extract (audio → `extract.json`, :104-114), Structuralize
-(audio → separation features → beat activations → DBN → `beat_pred.json`
-and `tempo.json`, :121-142) and the volume map (`volume.json`, :116-119)
-run as three concurrent threads, each on a CUDA stream of its own, while a
-fourth makes the decoder; then Decode (:144-275) reads the work-dir
+(`run` :283-352): a local file is copied into the work dir as `origin.wav`,
+an http(s) URL is fetched there by `yt-dlp` (`utils/download.py`; it needs
+`yt-dlp`, `ffmpeg` and the network, and without them the run exits 1), and
+the audio is decoded once; Extract (audio → `extract.json`, :104-114),
+Structuralize (audio → separation features → beat activations → DBN →
+`beat_pred.json` and `tempo.json`, :121-142) and the volume map
+(`volume.json`, :116-119) run as three concurrent threads, each on a CUDA
+stream of its own, while a fourth makes the decoder; then Decode (:144-275) reads the work-dir
 contract, tokenizes the condition, runs the generation engine and writes
 `<infer_output_dir>/<name>.mid` with the port's own tokenizer and MIDI
 writer. `--decode-only` runs Decode alone on the work dir's intermediates;
@@ -21,7 +23,7 @@ engine; `--engine rebuild` prefills every bar's prompt again (the
 reference's exact semantics, :174-196). `--attrs-prior` conditions each bar
 on the bins that the predictor in `<paths.checkpoints_dir>/attr_prior`
 gives its source bar (:247-256). Reference `.pth`/`.pt`/`.pkl` weights load
-from the model paths. A URL input is not ported.
+from the model paths.
 
 It runs on CUDA unless `--device cpu` is given; with no GPU it raises rather
 than carry on on the CPU. With no `--config`, the settings are the defaults
@@ -54,6 +56,7 @@ from .models.generate import GenerationEngine
 from .models.generate_stream import StreamingGenerationEngine
 from .utils.audio import analyze_volume, decode_audio, save_volume_map
 from .utils.device import resolve_device
+from .utils.download import download_audio_from_url
 from .utils.logger import logger
 from .utils.model_loader import load_etude_decoder
 from .utils.profiling import StageTimer, trace
@@ -62,7 +65,7 @@ _INTERMEDIATES = ("extract.json", "tempo.json", "volume.json")
 
 
 class InferencePipeline:
-    """Audio (a local file) → piano-cover MIDI."""
+    """Audio (file or URL) → piano-cover MIDI."""
 
     def __init__(self, config: EtudeConfig, device=None,
                  allow_random_weights: bool = False, engine_kind: str = "stream",
@@ -117,18 +120,18 @@ class InferencePipeline:
             return fn(*args)
 
     def _prepare_audio(self, source: str) -> Path:
-        """The input copied into the work dir as `origin.wav`."""
+        """The input, downloaded or copied, in the work dir as `origin.wav`."""
         logger.step("Preparing source audio")
+        local = self.work_dir / "origin.wav"
         if urlparse(source).scheme in ("http", "https"):
-            raise NotImplementedError(
-                f"cannot fetch the URL {source}: downloading audio is not yet "
-                "ported to etude_tpu_torch (it needs the network and yt-dlp); "
-                "download it and pass the local file")
-        if not Path(source).is_file():
+            if not download_audio_from_url(source, local):
+                logger.error("audio download failed")
+                sys.exit(1)
+        elif Path(source).is_file():
+            shutil.copy(source, local)
+        else:
             logger.error(f"input '{source}' is neither a URL nor a local file")
             sys.exit(1)
-        local = self.work_dir / "origin.wav"
-        shutil.copy(source, local)
         return local
 
     def _run_stage1_extract(self, audio_path: Path, wave_sr=None) -> None:
@@ -314,8 +317,9 @@ def main(argv=None) -> int:
 
     source = parser.add_mutually_exclusive_group(required=True)
     source.add_argument("--input", type=str,
-                        help="path of the source audio (WAV; other formats "
-                             "need ffmpeg; a URL is not ported)")
+                        help="path or http(s) URL of the source audio (WAV; "
+                             "other formats need ffmpeg; a URL needs yt-dlp, "
+                             "ffmpeg and the network)")
     source.add_argument("--decode-only", action="store_true",
                         help="reuse intermediates in the work dir")
 

@@ -1,12 +1,12 @@
 """Dataset preparation on one GPU:
-`python -m etude_tpu_torch.prepare --start-from preprocess [--device cpu] ...`.
+`python -m etude_tpu_torch.prepare [--start-from download] [--device cpu] ...`.
 
 The port of the repository's `prepare.py`: five resumable, idempotent
 stages, each of which skips the work whose outputs already exist —
 
-  1 download   CSV of (piano, pop) YouTube ids → raw/NNNN/{cover,origin}.wav;
-               not ported: it needs the network, yt-dlp and pandas, so it
-               raises NotImplementedError
+  1 download   CSV of (piano, pop) YouTube ids → raw/NNNN/{cover,origin}.wav
+               through yt-dlp (utils/download.py; it needs yt-dlp, ffmpeg
+               and the network); failed songs are warned of and left out
   2 preprocess hFT stride transcription of covers (data/hft.py); separation,
                Beat-Transformer and DBN beat grid of origins
   3 align      origin↔cover chroma DTW (data/aligner.py), WP-Std filter,
@@ -23,6 +23,7 @@ stages to run are refused unless `--allow-random-weights` is given.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import sys
 from pathlib import Path
@@ -40,6 +41,7 @@ from .data.separation import SourceSeparator
 from .data.tokenizer import TinyREMITokenizer
 from .data.vocab import Vocab
 from .utils.device import resolve_device
+from .utils.download import download_audio_from_url
 from .utils.logger import logger
 from .utils.preprocess import (
     compute_wp_std,
@@ -51,12 +53,71 @@ from .utils.profiling import StageTimer, maybe_span
 STAGES = ("download", "preprocess", "align", "extract", "tokenize")
 
 
-def run_stage_1_download(config: EtudeConfig, **_) -> None:
-    raise NotImplementedError(
-        "stage 1 (download) is not ported to etude_tpu_torch: it fetches "
-        "audio from YouTube, which needs the network, yt-dlp and pandas; put "
-        f"the songs under {config.paths.raw_dir}/NNNN/{{cover,origin}}.wav and "
-        "start from --start-from preprocess")
+YOUTUBE_URL = "https://www.youtube.com/watch?v="
+# (CSV column, file in raw/NNNN/), in the order they are fetched.
+DOWNLOADS = (("piano_ids", "cover.wav"), ("pop_ids", "origin.wav"))
+
+
+def _is_blank(row) -> bool:
+    """A line pandas skips: empty, or whitespace alone (not a quoted "")."""
+    return not row or (len(row) == 1 and row[0] != "" and not row[0].strip())
+
+
+def read_song_ids(csv_path: Path) -> list:
+    """The dataset CSV's rows as {column: id} for the DOWNLOADS columns,
+    read as `pandas.read_csv` reads them: blank and whitespace-only lines
+    are skipped and take no position, a UTF-8 BOM is dropped, quoted fields
+    are unquoted, of two columns of one name the first counts, and a
+    missing column or a row longer than the header fails before any
+    download. Unlike pandas, an id keeps its text as written: pandas makes
+    a column of digits integers (`007` → 7) and an empty cell, or a short
+    row's missing one, NaN (which turns a column of digits into floats,
+    `123.0`); here they stay `007`, `123` and an empty id."""
+    with open(csv_path, newline="", encoding="utf-8-sig") as f:
+        reader = csv.reader(f)
+        rows = []
+        for row in reader:
+            if _is_blank(row):
+                continue
+            if rows and len(row) > len(rows[0]):
+                raise ValueError(f"{csv_path}: expected {len(rows[0])} fields in line "
+                                 f"{reader.line_num}, saw {len(row)}")
+            rows.append(row)
+    if not rows:
+        raise ValueError(f"{csv_path}: no columns to parse from file")
+    header = rows[0]
+    for column, _ in DOWNLOADS:
+        if column not in header:
+            raise KeyError(f"{csv_path} has no column {column!r} (columns: {header})")
+    at = {column: header.index(column) for column, _ in DOWNLOADS}
+    return [{column: row[i] if i < len(row) else "" for column, i in at.items()}
+            for row in rows[1:]]
+
+
+def run_stage_1_download(config: EtudeConfig, timer=None, **_) -> None:
+    logger.stage("Downloading raw audio")
+    csv_path = Path(config.paths.dataset_csv)
+    out_dir = Path(config.paths.raw_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if not csv_path.exists():
+        logger.error(f"dataset CSV not found: {csv_path}")
+        sys.exit(1)
+
+    failed = []
+    for index, row in enumerate(read_song_ids(csv_path)):
+        song_dir = out_dir / f"{index + 1:04d}"
+        song_dir.mkdir(exist_ok=True)
+        ok = True
+        for column, name in DOWNLOADS:
+            target = song_dir / name
+            if target.exists():
+                continue
+            with maybe_span(timer, f"download {song_dir.name}: {name}"):
+                ok = download_audio_from_url(YOUTUBE_URL + row[column], target) and ok
+        if not ok:
+            failed.append(song_dir.name)
+    if failed:
+        logger.warn(f"{len(failed)} downloads failed: {', '.join(failed[:10])}")
 
 
 def run_stage_2_preprocess(config: EtudeConfig, device=None,

@@ -131,15 +131,20 @@ def test_missing_intermediates_exit(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--engine", "rebuild"], ["--attrs-prior"]])
-def test_unported_options_raise(decode_only_env, extra):  # noqa: F811
-    """These options are ported and run; of what they reach, only a URL
-    input is not ported and raises."""
+def test_options_run_and_a_url_needs_yt_dlp(decode_only_env, monkeypatch, extra):  # noqa: F811
+    """These options are ported and run; with them, a URL input without
+    yt-dlp on PATH exits 1 and writes no MIDI, as in the JAX package
+    (tests/test_torch_download.py fetches one through a stand-in)."""
     tmp_path, cfg_yaml = decode_only_env
     assert infer.main(["--config", str(cfg_yaml), *ARGS, *extra, "--output_name", "o"]) == 0
     assert (tmp_path / "outputs" / "infer" / "o.mid").exists()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        infer.main(["--config", str(cfg_yaml), "--input", "https://example.com/song.mp3",
-                    "--device", "cpu", "--allow-random-weights", *extra])
+    (tmp_path / "empty").mkdir()
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(SystemExit) as exit_:
+        infer.main(["--config", str(cfg_yaml), "--input", "https://example.invalid/song.mp3",
+                    "--device", "cpu", "--allow-random-weights", *extra, "--output_name", "u"])
+    assert exit_.value.code == 1
+    assert not (tmp_path / "outputs" / "infer" / "u.mid").exists()
 
 
 def _spy_on_generate(monkeypatch, engine_classes, seen, key):
@@ -213,12 +218,16 @@ def test_attrs_prior_conditions_per_bar(decode_only_env, monkeypatch):  # noqa: 
     assert seen["attrs"] == want
 
 
-def test_input_pipeline_not_yet_ported(tmp_path):
-    """`--input` runs the whole pipeline (tests/test_torch_pipeline.py); what
-    of it is not yet ported is fetching a URL."""
+def test_url_input_without_yt_dlp_exits_1(tmp_path, monkeypatch):
+    """`--input` runs the whole pipeline (tests/test_torch_pipeline.py); a
+    URL is fetched by yt-dlp (tests/test_torch_download.py), and without it
+    on PATH the run exits 1 before the work dir holds any audio."""
     settings = tmp_path / "settings.json"
     settings.write_text(json.dumps({"paths": {"infer_output_dir": str(tmp_path / "out")}}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        infer.main(["--config", str(settings), "--input", "https://example.com/song.mp3",
+    (tmp_path / "empty").mkdir()
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(SystemExit) as exit_:
+        infer.main(["--config", str(settings), "--input", "https://example.invalid/song.mp3",
                     "--device", "cpu", "--allow-random-weights"])
+    assert exit_.value.code == 1
     assert not (tmp_path / "out" / "temp" / "origin.wav").exists()

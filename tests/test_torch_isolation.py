@@ -1,7 +1,7 @@
 """The port stands alone: etude_tpu_torch and chip_smoke.py import nothing
-of JAX, of the JAX package, of orbax or of pydantic, and PyYAML only inside
-the guarded settings reader, so they run where only torch, numpy and the
-CUDA toolkit are installed. No file of the package is large."""
+of JAX, of the JAX package, of orbax, of pydantic or of pandas, and PyYAML
+only inside the guarded settings reader, so they run where only torch,
+numpy and the CUDA toolkit are installed. No file of the package is large."""
 
 import ast
 import subprocess
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "etude_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "etude_tpu", "orbax", "pydantic", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "etude_tpu", "orbax", "pydantic", "yaml", "pandas")
 # (file, enclosing function) where `import yaml` is allowed: only when the
 # caller names a YAML settings file.
 YAML_ALLOWED = {("etude_tpu_torch/config.py", "_read_settings")}

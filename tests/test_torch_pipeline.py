@@ -144,13 +144,25 @@ def test_input_without_gpu_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "port" / "temp" / "extract.json").exists()
 
 
-def test_url_input_raises_a_clear_error(tmp_path):
+def test_url_input_is_fetched_by_yt_dlp(tmp_path, monkeypatch):
+    """A URL goes through yt-dlp (here chip_smoke.py's stand-in, which copies
+    a local file) into the work dir's origin.wav; without yt-dlp, or for a
+    path that is no file, the run exits 1."""
+    import chip_smoke
+
     pipeline = infer.InferencePipeline(load_config(_settings(tmp_path, "port")), device="cpu",
                                        allow_random_weights=True)
-    with pytest.raises(NotImplementedError, match="download it and pass the local file"):
-        pipeline._prepare_audio("https://example.com/song.mp3")
-    with pytest.raises(SystemExit):
-        pipeline._prepare_audio(str(tmp_path / "missing.wav"))
+    wav = _song(tmp_path / "song.wav", seconds=1.0)
+    url = "https://example.invalid/song.mp3"
+    log = chip_smoke.ytdlp_stub(tmp_path / "bin", {url: wav})
+    monkeypatch.setenv("PATH", str(log.parent))
+    assert pipeline._prepare_audio(url).read_bytes() == wav.read_bytes()
+    assert len(chip_smoke.stub_calls(log)) == 1
+    monkeypatch.setenv("PATH", str(tmp_path / "port"))
+    for source in (url, str(tmp_path / "missing.wav")):
+        with pytest.raises(SystemExit) as exit_:
+            pipeline._prepare_audio(source)
+        assert exit_.value.code == 1
 
 
 def test_missing_extractor_weights_need_the_flag(tmp_path):

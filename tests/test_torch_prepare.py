@@ -399,9 +399,16 @@ def test_missing_checkpoints_are_refused(tmp_path, monkeypatch):
         prepare.main(["--config", str(settings), "--run-only", "align"])
 
 
-def test_stage_1_raises(tmp_path):
+def test_stage_1_without_a_csv_exits_1(tmp_path):
+    """Stage 1 fetches the dataset CSV's songs (tests/test_torch_download.py
+    holds it to the JAX stage); with no CSV the CLI exits 1, from its
+    default --start-from download and with --run-only download."""
     settings = _settings(tmp_path, "port")
-    with pytest.raises(NotImplementedError, match="network"):
-        prepare.main(["--config", str(settings), "--allow-random-weights", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="network"):
-        prepare.main(["--config", str(settings), "--run-only", "download", "--device", "cpu"])
+    body = json.loads(settings.read_text())
+    body["paths"]["dataset_csv"] = str(tmp_path / "none.csv")
+    settings.write_text(json.dumps(body))
+    for extra in (["--allow-random-weights"], ["--run-only", "download"]):
+        with pytest.raises(SystemExit) as exit_:
+            prepare.main(["--config", str(settings), *extra, "--device", "cpu"])
+        assert exit_.value.code == 1
+    assert (tmp_path / "raw").is_dir() and not any((tmp_path / "raw").iterdir())
